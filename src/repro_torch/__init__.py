@@ -1,0 +1,23 @@
+"""PyTorch + CUDA port of the BPipe reproduction, for an NVIDIA H100.
+
+Mirrors the layout of the JAX package (``repro_torch/<sub>/<mod>.py`` is
+the twin of ``repro/<sub>/<mod>.py``) and imports nothing of it. Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; a
+missing GPU raises instead of falling back.
+
+Ported so far: the serving path of the dense decoders (prefill + greedy
+decode) with a hand-written CUDA flash-attention forward.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on. ``cuda`` without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

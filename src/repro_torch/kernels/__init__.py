@@ -1,0 +1,9 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version:
+
+  flash_attention.py — flash-attention-2 forward (csrc/flash_attention_fwd.cu)
+    with an online softmax, GQA in the tile, causal/window/kv-padding/
+    q_offset masks, softcap and whole-tile skipping; LSE output.
+
+ops.py = autograd wrappers; ref.py = plain-torch oracles; build.py = nvcc
+build at first use + ctypes loading.
+"""

@@ -1,0 +1,83 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source ``csrc/<name>.cu`` exposes a plain C interface and is compiled
+on first use into ``_build/<name>-<hash>.so`` (a directory git ignores) for
+Hopper (``sm_90a``). The hash covers the source, ``NVCC_FLAGS`` and the
+nvcc version: a library built from the same three is reused, a change to
+any of them builds anew. Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+#: ptxas report (registers, shared memory, spills) of each library built by
+#: this process, by kernel name.
+build_logs: Dict[str, str] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return nvcc
+
+
+@functools.lru_cache(maxsize=None)
+def _nvcc_version() -> str:
+    return subprocess.run([_nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def _target(name: str) -> Tuple[Path, Path]:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update(_nvcc_version().encode())
+    return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source not built yet, all nvcc runs at once."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    for name in names:
+        src, lib = _target(name)
+        out[name] = lib
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        build_logs[name] = log
+        if proc.returncode:
+            failed.append(f"{name}:\n{log}")
+        else:
+            os.replace(tmp, out[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+    return _loaded[name]

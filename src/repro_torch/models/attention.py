@@ -1,0 +1,172 @@
+"""Attention: GQA/MHA, global or sliding-window, prefill and decode.
+
+Two implementations of full-sequence attention, as in the JAX twin:
+  * ``reference`` — plain einsum attention (``_sdpa``),
+  * ``flash``     — the flash-attention kernel (``kernels/ops``): the CUDA
+    kernel on a card, its plain PyTorch version on the CPU.
+Decode always takes ``_sdpa`` over the KV cache.
+
+The KV cache is updated in place (``update_kv_cache``/``fill_kv_cache``
+write into the cache's tensors and return the same dict), so a stacked
+cache is written through its row views and decode allocates no new cache.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import (_winit, apply_norm, init_norm, rope,
+                                       scalar, softcap)
+
+NEG_INF = -0.7 * float(np.finfo(np.float32).max)
+
+
+def init_attention(gen, cfg, device):
+    d, hd = cfg.d_model, cfg.head_dim
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    p = {
+        "wq": _winit(gen, (d, nq, hd), d, device),
+        "wk": _winit(gen, (d, nkv, hd), d, device),
+        "wv": _winit(gen, (d, nkv, hd), d, device),
+        "wo": _winit(gen, (nq, hd, d), nq * hd, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((nq, hd), device=device)
+        p["bk"] = torch.zeros((nkv, hd), device=device)
+        p["bv"] = torch.zeros((nkv, hd), device=device)
+    if cfg.qk_norm:
+        p["qnorm"] = init_norm(cfg, hd, device=device)
+        p["knorm"] = init_norm(cfg, hd, device=device)
+    return p
+
+
+def _project_q(p, x, cfg, positions):
+    dt = x.dtype
+    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+    if "qnorm" in p:
+        q = apply_norm(p["qnorm"], q)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _project_kv(p, x, cfg, positions):
+    dt = x.dtype
+    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(dt))
+    if "bk" in p:
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if "knorm" in p:
+        k = apply_norm(p["knorm"], k)
+    if positions is not None:
+        k = rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _sdpa(q, k, v, cfg, q_pos, k_pos, *, window):
+    """Reference causal scaled-dot-product attention with additive masking.
+
+    q: (b, sq, nq, hd); k/v: (b, sk, nkv, hd); *_pos: (b, s*) int.
+    The score einsum runs in the input dtype and is then upcast (fp32 when
+    ``cfg.attn_fp32``), divided by sqrt(hd) and masked with NEG_INF.
+    """
+    b, sq, nq, hd = q.shape
+    nkv = k.shape[2]
+    m = nq // nkv
+    qr = q.reshape(b, sq, nkv, m, hd)
+    score_dt = torch.float32 if cfg.attn_fp32 else q.dtype
+    scores = torch.einsum("bqgmh,bkgh->bgmqk", qr, k).to(score_dt)
+    scores = scores / scalar(np.sqrt(hd), score_dt, q.device)
+    scores = softcap(scores, cfg.attn_softcap)
+    dq = q_pos[:, None, None, :, None]
+    dk = k_pos[:, None, None, None, :]
+    # ring-buffer slots not yet written carry pos=-1
+    mask = (dk >= 0) & (dq >= dk)
+    if window:
+        mask = mask & (dq - dk < window)
+    scores = torch.where(mask, scores, scalar(NEG_INF, score_dt, q.device))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgmqk,bkgh->bqgmh", probs, v)
+    return out.reshape(b, sq, nq, hd)
+
+
+def _flash(q, k, v, cfg, *, window):
+    from repro_torch.kernels import ops
+    return ops.flash_attention(q, k, v, causal=True, window=window or 0,
+                               softcap=cfg.attn_softcap)
+
+
+def attention(p, x, cfg, positions, *, kind):
+    """Full-sequence (prefill) causal self attention.
+
+    kind: 'attn' (global causal) or 'local_attn' (sliding window).
+    Returns (out, (k, v)) so prefill can build the cache.
+    """
+    q = _project_q(p, x, cfg, positions)
+    k, v = _project_kv(p, x, cfg, positions)
+    window = cfg.window_size if kind == "local_attn" else 0
+    if cfg.attn_impl == "flash":
+        out = _flash(q, k, v, cfg, window=window)
+    else:
+        out = _sdpa(q, k, v, cfg, positions, positions, window=window)
+    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    return out, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Decode step with KV cache
+# ---------------------------------------------------------------------------
+def init_kv_cache(cfg, kind, batch, max_len, dtype, device):
+    """Global layers cache max_len slots; local layers a ring of window."""
+    n = min(cfg.window_size, max_len) if kind == "local_attn" else max_len
+    shape = (batch, n, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        # position stored in each slot; -1 = empty
+        "pos": torch.full((batch, n), -1, dtype=torch.int32, device=device),
+    }
+
+
+def update_kv_cache(cache, k_new, v_new, pos):
+    """Write one token (b, 1, nkv, hd) at position ``pos``, in place."""
+    slot = int(pos) % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][:, slot] = int(pos)
+    return cache
+
+
+def fill_kv_cache(cache, k_seq, v_seq, start=0):
+    """Bulk write a prefill sequence (b, s, nkv, hd) into the cache, in place."""
+    n = cache["k"].shape[1]
+    s = k_seq.shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=k_seq.device) + start
+    if s >= n:  # keep last n positions (ring for local layers)
+        # ring alignment: position p lives at slot p % n
+        roll = (s - n) % n
+        cache["k"].copy_(torch.roll(k_seq[:, -n:], roll, dims=1))
+        cache["v"].copy_(torch.roll(v_seq[:, -n:], roll, dims=1))
+        cache["pos"].copy_(torch.roll(pos[-n:], roll, dims=0).expand_as(cache["pos"]))
+        return cache
+    cache["k"][:, :s] = k_seq
+    cache["v"][:, :s] = v_seq
+    cache["pos"][:, :s] = pos
+    return cache
+
+
+def attention_decode(p, x, cfg, cache, pos, *, kind):
+    """One-token decode: x (b, 1, d), pos an int. Returns (out, cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
+    q = _project_q(p, x, cfg, positions)
+    k_new, v_new = _project_kv(p, x, cfg, positions)
+    cache = update_kv_cache(cache, k_new, v_new, pos)
+    window = cfg.window_size if kind == "local_attn" else 0
+    out = _sdpa(q, cache["k"], cache["v"], cfg, positions, cache["pos"],
+                window=window)
+    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
+    return out, cache

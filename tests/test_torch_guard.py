@@ -1,0 +1,91 @@
+"""Guards of the port: it imports nothing of JAX or the JAX package, its
+entry points refuse to fall back to the CPU, and its copies of the
+configs stay equal to the JAX package's."""
+import dataclasses
+import inspect
+import pathlib
+import re
+
+import pytest
+import torch
+
+import repro.configs as jcfgs
+import repro_torch.configs as tcfgs
+from repro_torch import serve
+from repro_torch.models import attention as TA
+from repro_torch.models import blocks as TB
+from repro_torch.models import layers as TL
+from repro_torch.models import model as TM
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
+
+
+def test_port_imports_no_jax_and_no_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in IMPORT.finditer(f.read_text())]
+    assert not bad, bad
+
+
+def test_serve_without_cpu_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "llama-65b", "--reduced", "--prompt-len", "4",
+                    "--gen", "2"])
+
+
+def _reduced_llama():
+    return dataclasses.replace(tcfgs.get_config("llama-65b").reduced(),
+                               dtype="float32", num_layers=2)
+
+
+@pytest.mark.parametrize("entry", ["init_params", "init_decode_state"])
+def test_model_entry_points_default_to_cuda(entry):
+    """Without a device the model's entry points take the card, and raise
+    where there is none instead of building on the CPU."""
+    assert inspect.signature(getattr(TM, entry)).parameters["device"].default \
+        == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    cfg = _reduced_llama()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "init_params":
+            TM.init_params(torch.Generator().manual_seed(0), cfg)
+        else:
+            TM.init_decode_state(cfg, 2, 8)
+    assert TM.init_decode_state(cfg, 2, 8, device="cpu")["pos0"]["k"].is_cpu
+
+
+@pytest.mark.parametrize("fn", [
+    TL.init_norm, TL.init_mlp, TL.init_embed, TA.init_attention,
+    TA.init_kv_cache, TB.init_layer, TB.init_layer_state,
+    TB.PatternStack.init, TB.PatternStack.init_state,
+], ids=lambda f: f.__qualname__)
+def test_internal_inits_take_device_without_default(fn):
+    assert inspect.signature(fn).parameters["device"].default \
+        is inspect.Parameter.empty
+
+
+def test_serve_cpu_flag_runs():
+    res = serve.main(["--arch", "llama-65b", "--reduced", "--device", "cpu",
+                      "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(res["tokens"].shape) == (2, 3)
+    assert torch.isfinite(res["last_logits"]).all()
+
+
+def test_registry_names_equal():
+    assert tcfgs.list_configs() == jcfgs.list_configs()
+    assert tcfgs.ASSIGNED == jcfgs.ASSIGNED
+
+
+@pytest.mark.parametrize("name", jcfgs.list_configs())
+def test_config_copies_equal_field_by_field(name):
+    j, t = jcfgs.get_config(name), tcfgs.get_config(name)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
+    assert t.param_count() == j.param_count()
+    assert t.layer_kinds() == j.layer_kinds()
