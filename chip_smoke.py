@@ -7,21 +7,37 @@ Phases, each fatal on failure:
   1. the card's name and power limit; the kernels built from csrc/ (nvcc,
      all sources at once) with their ptxas report;
   2. every kernel against its plain PyTorch version on the card, at the
-     kernel tests' shapes and tolerances and at the main path's shapes;
-  3. the kernels timed at the main path's shape beside their plain version,
-     one PyTorch library call as a yardstick, and the card's bound;
-  4. the main path: ``repro_torch.serve`` on llama-65b at full width, 10
+     kernel tests' shapes and tolerances and at the main paths' shapes:
+     the flash forward, and the backward's dq and dk/dv kernels (with a
+     check that two runs give the same bits);
+  3. the kernels timed at the main paths' shapes beside their plain
+     versions (one each: the forward, the dq pass, the dk/dv pass), one
+     PyTorch library call as a yardstick, and the card's bound;
+  4. the serving path: ``repro_torch.serve`` on llama-65b at full width, 10
      layers (one stage of the paper's 8-way split of 80), batch 4, prompt
      2048, 16 generated tokens, flash attention, bf16 compute; with the
-     kernel launch counts read over that run;
+     launch counts of all three kernels read over that run (the backward
+     kernels must not launch);
   5. the serve path's output checked: finite, in range, deterministic, and
      at a small fp32 size the flash arm equal to the reference arm; one
-     prefill and its decode steps profiled (device busy share, top kernels).
+     prefill and its decode steps profiled (device busy share, top kernels);
+  6. the training path: ``repro_torch.launch.train`` on llama-65b at full
+     width, 4 layers, batch 1 x 2048, 5 steps, flash attention, bf16
+     compute, fp32 params and Adam moments: step time, tokens/s, MFU, peak
+     memory, each step's loss and grad norm, the launch counts over that
+     run; one step profiled;
+  7. the training path's output checked at a small fp32 size: the flash arm's
+     loss and grads equal the reference arm's, the recompute arms equal no
+     recompute, and one train step on the card equals the same step on the
+     CPU.
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
+import dataclasses
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,7 +56,15 @@ SWEEP = [
     (1, 128, 16, 4, 8, "float32", 32, 50.0),
     (3, 32, 2, 2, 128, "bfloat16", 8, 0.0),
 ]
+# the four backward cases of tests/test_kernels.py:53-58 (b 1, fp32)
+BWD_SWEEP = [
+    (1, 32, 4, 2, 16, "float32", 0, 0.0),
+    (1, 64, 4, 1, 32, "float32", 16, 0.0),
+    (1, 48, 8, 8, 16, "float32", 0, 20.0),
+    (1, 40, 2, 2, 32, "float32", 0, 0.0),
+]
 MAIN = dict(arch="llama-65b", layers=10, batch=4, prompt=2048, gen=16)
+TRAIN = dict(arch="llama-65b", layers=4, batch=1, seq=2048, steps=5)
 
 
 def fail(msg):
@@ -73,6 +97,26 @@ def agree(torch, out, want_out, lse, want_lse, dtype):
     return o_err, lse_err, ok
 
 
+# dq, dk, dv: fp32 as the JAX backward test (2e-4 / 1e-3). In bf16 the sums
+# run over up to 2048 keys or queries before one bf16 rounding, so beside
+# the tests' 2.5e-2 each element is held to G_RTOL |want| + G_ATOL max|want|.
+G_ATOL32, G_RTOL32 = 2e-4, 1e-3
+G_RTOL, G_ATOL = 1e-2, 1e-3
+
+
+def grad_agree(torch, got, want, dtype):
+    """(max abs error, ok) of one gradient against its plain version."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool(torch.isfinite(got).all())
+    if dtype == "bfloat16":
+        ok = (ok and float(err.max()) <= 2.5e-2
+              and bool((err <= G_RTOL * w.abs() + G_ATOL * w.abs().max()).all()))
+    else:
+        ok = ok and bool((err <= G_ATOL32 + G_RTOL32 * w.abs()).all())
+    return float(err.max()), ok
+
+
 def time_ms(torch, fn, iters, warmup=2):
     for _ in range(warmup):
         fn()
@@ -93,16 +137,73 @@ def attention_bound(q, k, v, out, lse, *, causal, window, q_offset=0):
     pairs these masks keep (two products of hd MACs each) over the bf16
     peak. Returns (ms, "bytes" | "operations")."""
     b, sq, nq, hd = q.shape
-    sk = k.shape[1]
+    pairs = causal_pairs(sq, k.shape[1], causal=causal, window=window,
+                         q_offset=q_offset)
+    flops = 4.0 * b * nq * hd * pairs
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse))
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def causal_pairs(sq, sk, *, causal, window, q_offset=0):
+    """(query, key) pairs the masks keep."""
     pairs = 0
     for i in range(sq):
         hi = min(sk, i + q_offset + 1) if causal else sk
         lo = max(0, i + q_offset - window + 1) if window else 0
         pairs += max(0, hi - lo)
-    flops = 4.0 * b * nq * hd * pairs
-    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse))
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    return pairs
+
+
+def bwd_bounds(q, k, v, lse, *, causal, window):
+    """Least time of each backward kernel on an H100, as for the forward:
+    dq does 3 products per kept (query, key) pair (S, dP, dS K), dk/dv 4
+    (S, dP, P^T dO, dS^T Q), 2 hd FLOP each; each reads q, k, v, dO, LSE
+    and D once and writes its outputs once. Returns {name: (ms, by)}."""
+    b, sq, nq, hd = q.shape
+    pair_flops = 2.0 * b * nq * hd * causal_pairs(
+        sq, k.shape[1], causal=causal, window=window)
+    el = q.element_size()
+    read = (2 * q.numel() + k.numel() + v.numel()) * el + 2 * lse.numel() * 4
+    out = {}
+    for name, n_products, written in (("flash_attention_dq", 3, q.numel()),
+                                      ("flash_attention_dkv", 4,
+                                       k.numel() + v.numel())):
+        t_ops = n_products * pair_flops / H100_BF16_FLOPS
+        t_bytes = (read + written * el) / H100_HBM_BYTES_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def kernel_device_ms(torch, fn, names, iters=5):
+    """Device time per launch of each kernel whose name holds one of
+    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for n in names:
+            if n in e.key and e.self_device_time_total > 0:
+                out[n] = e.self_device_time_total / 1e3 / e.count
+    missing = [n for n in names if n not in out]
+    if missing:
+        fail(f"the profiler shows no device time for {missing}")
+    return out
+
+
+# kernel names -> the kinds a profile is summed by (first match wins)
+PROFILE_KINDS = [
+    ("port flash kernels", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+    ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+    ("elementwise, copies and casts", ("elementwise", "copy", "fill", "cat")),
+    ("reductions", ("reduce", "softmax", "norm")),
+]
 
 
 def profile_window(torch, label, fn, top=8):
@@ -125,6 +226,169 @@ def profile_window(torch, label, fn, top=8):
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f} % "
               f"x{e.count:<5d} {e.key[:90]}")
+    kinds = {}
+    for e in kernels:
+        kind = next((k for k, marks in PROFILE_KINDS if any(m in e.key for m in marks)),
+                    "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total
+    print(f"[profile] {label} by kind: " + ", ".join(
+        f"{k} {v / 1e3:.3f} ms ({100 * v / max(busy_us, 1):.1f} %)"
+        for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+
+
+def counts_zero(fa):
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.dq_launches = 0
+    fa.flash_attention_bwd.dkv_launches = 0
+
+
+def counts_read(fa):
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_dq": fa.flash_attention_bwd.dq_launches,
+            "flash_attention_dkv": fa.flash_attention_bwd.dkv_launches}
+
+
+def train_path(torch, dev, smi):
+    """Phase 6: the launcher's training loop at full width; returns the
+    kernel launch counts over that run."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.steps import make_train_step
+
+    t = TRAIN
+    argv = ["--arch", t["arch"], "--layers", str(t["layers"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--steps", str(t["steps"]),
+            "--log-every", "1"]
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(fa)
+    res = launch_train.main(argv)
+    counts = counts_read(fa)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps = res["cfg"], res["steps"]
+    for st in steps:
+        print(f"[train] step {st['step']}: loss {st['loss']:.6f} grad_norm "
+              f"{st['grad_norm']:.6f} lr {st['lr']:.3e} {st['s'] * 1e3:.2f} ms")
+    step_s = sorted(st["s"] for st in steps[2:5])[1]
+    tokens = t["batch"] * t["seq"]
+    n = cfg.param_count()
+    flops = (6 * n + 6 * cfg.num_layers * t["seq"] * cfg.d_model) * tokens
+    mfu = flops / step_s / H100_BF16_FLOPS
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[train] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+          f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
+          f"attn={cfg.attn_impl}: b{t['batch']} x {t['seq']}, {t['steps']} steps; "
+          f"step {step_s * 1e3:.2f} ms (median of steps 3-5), "
+          f"{tokens / step_s:.1f} tokens/s, MFU {100 * mfu:.2f} % "
+          f"(= (6 N + 6 L s d) tokens / step time / 989e12, N {n}, L "
+          f"{cfg.num_layers}, s {t['seq']}, d {cfg.d_model}, tokens {tokens}); "
+          f"peak memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; "
+          f"card {smi}")
+    print(f"[train] launches over the run: {counts}")
+    want = cfg.num_layers * t["steps"]
+    if any(v != want for v in counts.values()):
+        fail(f"training launched {counts}, want {want} of each kernel")
+    if not all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+               for st in steps):
+        fail("a training loss or grad norm is not finite")
+    if peak >= total:
+        fail(f"peak memory {peak} is not under the card's {total}")
+
+    # where the time goes: one step profiled
+    params, opt = res["params"], res["opt"]
+    tcfg = dataclasses.replace(TrainConfig(), steps=t["steps"], seq_len=t["seq"])
+    step_fn = make_train_step(cfg, tcfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), 0).items()}
+    box = {"p": params, "o": opt}
+
+    def one_step():
+        box["p"], box["o"], _ = step_fn(box["p"], box["o"], batch)
+
+    profile_window(torch, "train step", one_step, top=16)
+
+    del res, params, opt, box, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_checks(torch, dev):
+    """Phase 7: the training path at a small fp32 size on the card."""
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    from repro_torch.train.steps import make_loss_grad, make_train_step
+
+    def small_cfg(impl):
+        return serve.config_for(TRAIN["arch"], layers=3, attn_impl=impl,
+                                reduced=True)
+
+    cfg = small_cfg("flash")
+    params = M.init_params(torch.Generator(dev).manual_seed(4), cfg, dev)
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g)
+    labels = toks[:, 1:].clone()
+    labels[0, :5] = -1
+    batch = {"tokens": toks[:, :-1].to(dev), "labels": labels.to(dev)}
+
+    def close(got, want, atol, rtol):
+        return max(float(((a - b).abs() - atol - rtol * b.abs()).max())
+                   for a, b in zip(T.leaves(got), T.leaves(want))) <= 0
+
+    def max_err(got, want):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(T.leaves(got), T.leaves(want)))
+
+    results = {}
+    for impl in ("flash", "reference"):
+        for remat in ("none", "attn", "full"):
+            counts_zero(fa)
+            loss, grads = make_loss_grad(small_cfg(impl), TrainConfig(remat=remat))(
+                params, batch)
+            results[impl, remat] = (float(loss), grads, fa.flash_attention_fwd.launches)
+    f_loss, f_grads, _ = results["flash", "none"]
+    r_loss, r_grads, _ = results["reference", "none"]
+    ok = abs(f_loss - r_loss) <= 2e-4 and close(f_grads, r_grads, 2e-4, 1e-3)
+    print(f"[check] reduced llama-65b fp32 training, flash vs reference arm: loss "
+          f"{f_loss:.7f} vs {r_loss:.7f}, grads max_abs_err "
+          f"{max_err(f_grads, r_grads):.3e} (tol 2e-4 + 1e-3|want|) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the flash arm's loss or grads disagree with the reference arm's")
+    for impl in ("flash", "reference"):
+        base_loss, base_grads, base_n = results[impl, "none"]
+        for remat in ("attn", "full"):
+            loss, grads, n = results[impl, remat]
+            err = max(abs(loss - base_loss), max_err(grads, base_grads))
+            ok = err <= 1e-6
+            if impl == "flash" and remat == "attn":
+                ok = ok and n == 2 * base_n == 2 * cfg.num_layers
+            print(f"[check] {impl} remat={remat} vs none: max err {err:.3e} "
+                  f"(tol 1e-6), forward kernel launches {n} (none: {base_n}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"remat={remat} changes the {impl} arm's loss or grads, "
+                     f"or the forward kernel count")
+    # one train step on the card equals the same step on the CPU
+    tcfg = TrainConfig(steps=10, warmup_steps=2, learning_rate=1e-3)
+    step = make_train_step(cfg, tcfg)
+    cpu_params = T.tree_map(lambda t: t.to("cpu", copy=True), params)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_params, _, cpu_m = step(cpu_params, adam.init(cpu_params), cpu_batch)
+    params, _, m = step(params, adam.init(params), batch)
+    loss_err = abs(float(m["loss"]) - float(cpu_m["loss"]))
+    rel = max(float((a.cpu() - b).norm() / b.norm())
+              for a, b in zip(T.leaves(params), T.leaves(cpu_params)))
+    ok = loss_err <= 1e-5 and rel <= 1e-5
+    print(f"[check] one train step on the card vs on the CPU: loss err "
+          f"{loss_err:.3e} (tol 1e-5), params max per-leaf relative norm err "
+          f"{rel:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("a train step on the card disagrees with the same step on the CPU")
 
 
 def main():
@@ -150,14 +414,19 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = ["flash_attention_fwd"]
+    kernels = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"]
     t0 = time.perf_counter()
     build.build(kernels)
     print(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs.items():
+        entry = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            m = re.search(r"(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            if m:  # the instance: element type and padded head_dim
+                entry = (f"{m.group(1)}_kernel<{'float' if m.group(2) == 'f' else 'bf16'}, "
+                         f"{m.group(3)}>")
+            elif "registers" in line or "spill" in line:
+                print(f"  {entry}: {line.strip()}")
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -211,6 +480,51 @@ def main():
         del q, k, v, out, lse, want_out, want_lse
     torch.cuda.empty_cache()
 
+    # the backward's dq and dk/dv kernels against the plain backward
+    bwd_cases = [dict(b=b, sq=s, sk=s, nq=nq, nkv=nkv, hd=hd, dtype=dt,
+                      window=w, softcap=c, q_offset=0, name="bwd sweep")
+                 for b, s, nq, nkv, hd, dt, w, c in BWD_SWEEP]
+    bwd_cases += [dict(c, name="fwd sweep") for c in cases if c["name"] == "sweep"]
+    bwd_cases += [c for c in cases if c["name"] in ("q_offset", "strided")]
+    bwd_cases.append(dict(b=1, sq=2048, sk=2048, nq=64, nkv=64, hd=128,
+                          dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
+                          name="llama-65b training shape"))
+    bwd_cases.append(dict(b=1, sq=2048, sk=2048, nq=104, nkv=104, hd=96,
+                          dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
+                          name="gpt3-96b hd 96"))
+    bwd_err = {"flash_attention_dq": 0.0, "flash_attention_dkv": 0.0}
+    for c in bwd_cases:
+        q, k, v = qkv(c["b"], c["sq"], c["sk"], c["nq"], c["nkv"], c["hd"],
+                      c["dtype"], c.get("strided", False))
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        if c.get("strided"):  # dO as an einsum's backward may hand it over
+            do = do.transpose(1, 2).contiguous().transpose(1, 2)
+        kw = dict(causal=True, window=c["window"], softcap=c["softcap"],
+                  q_offset=c["q_offset"])
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        errs = [grad_agree(torch, g_, w_, c["dtype"]) for g_, w_ in zip(got, want)]
+        ok = same and all(e[1] for e in errs)
+        bound = (f"{G_RTOL}|want| + {G_ATOL} max|want| and 2.5e-2"
+                 if c["dtype"] == "bfloat16" else f"{G_ATOL32} + {G_RTOL32}|want|")
+        print(f"[check] flash_attention_bwd {c['name']} b{c['b']} sq{c['sq']} "
+              f"sk{c['sk']} {c['nq']}/{c['nkv']}x{c['hd']} {c['dtype']} "
+              f"w{c['window']} cap{c['softcap']} off{c['q_offset']}: "
+              f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} "
+              f"dv {errs[2][0]:.3e} (within {bound}); two runs bit-equal "
+              f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_attention_bwd disagrees with its plain version: {c}")
+        bwd_err["flash_attention_dq"] = max(bwd_err["flash_attention_dq"], errs[0][0])
+        bwd_err["flash_attention_dkv"] = max(bwd_err["flash_attention_dkv"],
+                                             errs[1][0], errs[2][0])
+        del q, k, v, do, out, lse, got, again, want
+    torch.cuda.empty_cache()
+
     # -- 3. timing at the main path's shape --------------------------------------
     b, s, nh, hd = MAIN["batch"], MAIN["prompt"], 64, 128
     q, k, v = qkv(b, s, s, nh, nh, hd, "bfloat16")
@@ -228,6 +542,35 @@ def main():
     del q, k, v, out, lse, qt, kt, vt
     torch.cuda.empty_cache()
 
+    # the backward at the training path's shape
+    b, s = TRAIN["batch"], TRAIN["seq"]
+    q, k, v = qkv(b, s, s, nh, nh, hd, "bfloat16")
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
+    bounds = bwd_bounds(q, k, v, lse, causal=True, window=0)
+    bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    split = kernel_device_ms(torch, bwd, ["dq_kernel", "dkv_kernel"])
+    bwd_ms = time_ms(torch, bwd, 10)
+    delta = ref.flash_attention_delta(out, do, lse)
+    plain_by = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do,
+                                                   causal=True), 3, warmup=1)
+                for name, f in (("flash_attention_dq", ref.flash_attention_dq_ref),
+                                ("flash_attention_dkv", ref.flash_attention_dkv_ref))}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    bwd_library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+    bwd_ms_by = {"flash_attention_dq": split["dq_kernel"],
+                 "flash_attention_dkv": split["dkv_kernel"]}
+    for name, ms in bwd_ms_by.items():
+        print(f"[time] {name} b{b} s{s} {nh}x{hd} bf16 causal: kernel {ms:.4f} ms "
+              f"(profiler device time per launch), plain {plain_by[name]:.4f} ms, "
+              f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}); card {smi}")
+    print(f"[time] flash_attention_bwd (D + dq + dk/dv kernels) {bwd_ms:.4f} ms, "
+          f"sdpa backward (dq, dk, dv together) {bwd_library_ms:.4f} ms; card {smi}")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+
     # -- 4. the main path ------------------------------------------------------------
     cfg = serve.config_for(MAIN["arch"], layers=MAIN["layers"], attn_impl="flash")
     torch.cuda.reset_peak_memory_stats()
@@ -235,9 +578,10 @@ def main():
     prompts = torch.randint(0, cfg.vocab_size, (MAIN["batch"], MAIN["prompt"]),
                             generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
-    fa.flash_attention_fwd.launches = 0
+    counts_zero(fa)
     runs = [serve.serve(params, cfg, prompts, MAIN["gen"]) for _ in range(2)]
-    launches = fa.flash_attention_fwd.launches
+    serve_counts = counts_read(fa)
+    launches = serve_counts["flash_attention_fwd"]
     prefill_calls = len(runs)
     warm, res = runs
     print(f"[serve] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
@@ -248,11 +592,12 @@ def main():
           f"{res['decode_tok_s']:.2f} tok/s ({res['decode_s'] * 1e3:.2f} ms for "
           f"{MAIN['gen'] - 1} steps); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
-    print(f"[serve] flash_attention_fwd launches {launches} over "
-          f"{prefill_calls} prefill calls")
+    print(f"[serve] launches over {prefill_calls} prefill calls: {serve_counts}")
     if launches != cfg.num_layers * prefill_calls:
         fail(f"flash kernel launched {launches} times, want "
              f"{cfg.num_layers} x {prefill_calls}")
+    if serve_counts["flash_attention_dq"] or serve_counts["flash_attention_dkv"]:
+        fail(f"serving launched a backward kernel: {serve_counts}")
 
     # -- 5. is the output right --------------------------------------------------------
     toks = res["tokens"]
@@ -302,14 +647,37 @@ def main():
           f"max_abs_err {err:.3e} (tol 2e-4), tokens equal {same}")
     if err > 2e-4 or not same:
         fail("flash arm disagrees with the reference arm")
+    del small, sp, sprompt
+    torch.cuda.empty_cache()
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:31",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}))
+    # -- 6. the training path ----------------------------------------------------------
+    train_counts = train_path(torch, dev, smi)
+
+    # -- 7. is the training path right ---------------------------------------------------
+    train_checks(torch, dev)
+
+    print(json.dumps({"kernels": [
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:31",
+         "launches": train_counts["flash_attention_fwd"],
+         "launches_by_path": {"serve": launches,
+                              "train": train_counts["flash_attention_fwd"]},
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+         "launches": train_counts[name],
+         "launches_by_path": {"serve": serve_counts[name],
+                              "train": train_counts[name]},
+         "max_abs_err": bwd_err[name], "ms": bwd_ms_by[name],
+         "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": bwd_library_ms,
+         "library_computes": "dq, dk and dv together"}
+        for name, line in (("flash_attention_dq", 220),
+                           ("flash_attention_dkv", 259))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,10 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of falling back.
 
 Ported so far: the serving path of the dense decoders (prefill + greedy
-decode) with a hand-written CUDA flash-attention forward.
+decode) with a hand-written CUDA flash-attention forward, and the
+single-device training step (``launch.train``: loss, recompute arms,
+Adam, data, checkpoints) with hand-written CUDA flash-attention dq and
+dk/dv backward kernels.
 """
 from __future__ import annotations
 

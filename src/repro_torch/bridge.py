@@ -33,8 +33,9 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_torch(tree: Mapping[str, Any], device="cpu"):
-    """Nested dict of arrays -> the same nesting of tensors on ``device``."""
+def to_torch(tree: Mapping[str, Any], device):
+    """Nested dict of arrays -> the same nesting of tensors on ``device``
+    (no default: a caller on the card must not get CPU tensors unasked)."""
     return {k: to_torch(v, device) if isinstance(v, Mapping)
             else _leaf_to_torch(v, device) for k, v in tree.items()}
 

@@ -1,15 +1,23 @@
-"""Flash-attention forward: the CUDA kernel's wrapper.
+"""Flash attention: the wrappers of the CUDA forward and backward kernels.
 
 ``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` for a
 CUDA tensor and computes its plain version (``ref.flash_attention_ref``)
-for a CPU tensor; any
-other device raises. The kernel replaces the JAX package's Pallas
-``_kernel`` (``repro/kernels/flash_attention.py``) and keeps its layout:
-q (b, sq, nq, hd), k/v (b, sk, nkv, hd); O in the input dtype and LSE
-(b, sq, nkv, m) in fp32, m = nq // nkv.
+for a CPU tensor; any other device raises. The kernel replaces the JAX
+package's Pallas ``_kernel`` (``repro/kernels/flash_attention.py``) and
+keeps its layout: q (b, sq, nq, hd), k/v (b, sk, nkv, hd); O in the input
+dtype and LSE (b, sq, nkv, m) in fp32, m = nq // nkv.
 
-``flash_attention_fwd.launches`` counts kernel launches (and nothing else),
-so a run can show that it went through the kernel.
+``flash_attention_bwd`` is the two-pass backward: ``csrc/flash_attention_dq.cu``
+(the twin of ``_dq_kernel``) and ``csrc/flash_attention_dkv.cu`` (the twin
+of ``_dkv_kernel``) for CUDA tensors, ``ref.flash_attention_bwd_ref`` for
+CPU tensors. D = rowsum(dO * O) is computed in plain torch
+(``ref.flash_attention_delta``) before the two launches, as the JAX package
+computes it outside its kernels; ``ref.flash_attention_dq_ref`` and
+``ref.flash_attention_dkv_ref`` are the plain versions of the two kernels.
+
+``flash_attention_fwd.launches``, ``flash_attention_bwd.dq_launches`` and
+``flash_attention_bwd.dkv_launches`` count kernel launches (and nothing
+else), so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_delta,
+                                     flash_attention_ref)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
@@ -47,16 +56,22 @@ def _check(q, k, v):
         raise ValueError("q/k/v lie on different devices")
 
 
-def _lib():
-    lib = build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+def _lib(name, n_ptrs, n_strides):
+    """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` tensor
+    pointers, dtype and the six sizes, ``n_strides`` strides, the masks,
+    softcap, scale and the stream."""
+    fn = getattr(build.load(name), name)
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                       ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                       i, i, i, f, f, p]
+        fn.argtypes = ([p] * n_ptrs + [i] * 7 + [ll] * n_strides
+                       + [i, i, i, f, f, p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _raise_if(err, name):
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -80,7 +95,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
     out = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, sq, nkv, nq // nkv), dtype=torch.float32,
                       device=q.device)
-    fn = _lib()
+    fn = _lib("flash_attention_fwd", 5, 9)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), _DTYPES[q.dtype], b, sq, sk, nq, nkv, hd,
@@ -88,11 +103,63 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0,
                  int(bool(causal)), int(window or 0), int(q_offset),
                  float(softcap or 0.0), float(scale),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
-                           f"cudaError {err}")
+    _raise_if(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
+                        softcap=0.0, scale=None, q_offset=0):
+    """dq, dk, dv of the forward that gave ``out`` and ``lse``.
+
+    q/out/dout: (b, sq, nq, hd); k/v: (b, sk, nkv, hd); lse: (b, sq, nkv, m)
+    fp32. dq comes back in q's dtype, dk/dv in k's and v's (one dtype for
+    all on the card). ``q_offset`` as in the forward.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(
+            q, k, v, out, lse, dout, causal=causal, window=window,
+            softcap=softcap, scale=scale, q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not {q.device}")
+    _check(q, k, v)
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.stride(-1) != 1:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype} with a unit last stride")
+    if (lse.shape != (b, sq, nkv, nq // nkv) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want a "
+                         f"contiguous fp32 (b, sq, nkv, m)")
+    if not (dout.device == out.device == lse.device == q.device):
+        raise ValueError("q/out/lse/dout lie on different devices")
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    delta = flash_attention_delta(out, dout, lse)
+    dq = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, nkv, hd), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, nkv, hd), dtype=v.dtype, device=q.device)
+    common = (_DTYPES[q.dtype], b, sq, sk, nq, nkv, hd,
+              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+              *dout.stride()[:3], int(bool(causal)), int(window or 0),
+              int(q_offset), float(softcap or 0.0), float(scale))
+    fn_dq = _lib("flash_attention_dq", 7, 12)
+    fn_dkv = _lib("flash_attention_dkv", 8, 12)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn_dq(*ptrs, dq.data_ptr(), *common, stream)
+        _raise_if(err, "flash_attention_dq")
+        flash_attention_bwd.dq_launches += 1
+        err = fn_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream)
+        _raise_if(err, "flash_attention_dkv")
+        flash_attention_bwd.dkv_launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0

@@ -1,28 +1,40 @@
 """Autograd wrappers for the port's kernels.
 
-``flash_attention``: the CUDA forward (``flash_attention.py``). Its
-backward is not ported yet: the dq and dk/dv kernels are rows 2 and 3 of
-ROADMAP queue B, and until they land a backward through it raises.
+``flash_attention``: the CUDA forward (``flash_attention.flash_attention_fwd``)
+saving O and the LSE, and the two-pass CUDA backward
+(``flash_attention.flash_attention_bwd``: the dq and dk/dv kernels) that
+recomputes P from them, the twin of the JAX package's ``custom_vjp``. On
+CPU tensors both take their plain PyTorch versions.
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
-        return flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                   softcap=softcap, scale=scale,
-                                   q_offset=q_offset)
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                       softcap=softcap, scale=scale,
+                                       q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale, q_offset=q_offset)
+        return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash-attention backward is not ported: the dq and dk/dv "
-            "kernels are ROADMAP queue B rows 2 and 3")
+        q, k, v, out, lse = ctx.saved_tensors
+        if grad_out.stride(-1) != 1:  # the kernels take strides, not this one
+            grad_out = grad_out.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, grad_out,
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None,

@@ -4,7 +4,14 @@ A model's depth is ``num_layers`` layers whose temporal-mixer kinds follow
 ``cfg.block_pattern``. As in the JAX twin, full pattern repetitions are
 stacked (every leaf has a leading ``n_full`` dim) and the remainder layers
 (depth % pattern) are kept apart as ``rem{i}``; a Python loop over the
-stacked rows takes the place of ``lax.scan``.
+stacked rows takes the place of ``lax.scan``. The rows of the stacked
+params are taken with one ``torch.unbind`` per leaf and forward: its
+backward stacks the rows' grads once, where a ``select`` per row would
+allocate a zero tensor of the whole stack for every row and leaf.
+
+Recompute arms, as in the JAX twin: ``remat="attn"`` checkpoints each
+layer's mixer, ``"full"`` each stacked pattern block (not the remainder
+layers), both with ``torch.utils.checkpoint`` (non-reentrant).
 
 Each layer = pre-norm mixer + pre-norm dense FFN, residual. The port covers
 the attention mixers (ATTN, LOCAL); the other kinds raise.
@@ -14,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, LOCAL, MLSTM, RGLRU, SLSTM
 from repro_torch.models import attention as attn_mod
@@ -49,12 +57,21 @@ def init_layer(gen, cfg, kind, device):
     return p
 
 
-def apply_layer(p, x, cfg, kind, positions):
+def _apply_mixer(p, x, cfg, kind, positions, *, remat):
+    def f(p_, x_):
+        out, _ = attn_mod.attention(p_, x_, cfg, positions, kind=kind)
+        return out
+
+    if remat == "attn":
+        return checkpoint(f, p, x, use_reentrant=False)
+    return f(p, x)
+
+
+def apply_layer(p, x, cfg, kind, positions, *, remat="none"):
     """Forward layer. Returns (x, aux_loss); aux is 0 for a dense FFN."""
     _check_supported(cfg, kind)
-    h, _ = attn_mod.attention(p["mixer"], apply_norm(p["norm1"], x), cfg,
-                              positions, kind=kind)
-    x = x + h
+    x = x + _apply_mixer(p["mixer"], apply_norm(p["norm1"], x), cfg, kind,
+                         positions, remat=remat)
     if "ffn" in p:
         x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
     return x, 0.0
@@ -96,6 +113,16 @@ def _row(tree, i):
     """Row ``i`` of every stacked leaf (views, so writes reach the stack)."""
     return {k: _row(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _rows(tree, n):
+    """The ``n`` rows of every stacked leaf, as ``n`` trees of views."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _rows(v, n) if isinstance(v, dict) else torch.unbind(v)
+        for row, part in zip(out, parts):
+            row[k] = part
+    return out
 
 
 def _stack_init(n: int, make: Callable[[], Dict[str, Any]]):
@@ -161,21 +188,44 @@ class PatternStack:
                                              dtype, device)
         return st
 
+    def _blocks(self, params):
+        """The params of each stacked pattern block: {pos{j}: layer params}."""
+        rows = {f"pos{j}": _rows(params[f"pos{j}"], self.n_full)
+                for j in range(len(self.pattern)) if self.n_full}
+        return [{k: v[r] for k, v in rows.items()} for r in range(self.n_full)]
+
     def _layers(self, params, state=None):
         """(kind, layer params, layer state) in depth order."""
-        for r in range(self.n_full):
+        for r, block in enumerate(self._blocks(params)):
             for j, kind in enumerate(self.pattern):
-                yield (kind, _row(params[f"pos{j}"], r),
+                yield (kind, block[f"pos{j}"],
                        None if state is None else _row(state[f"pos{j}"], r))
         for i, kind in enumerate(self.rem):
             yield (kind, params[f"rem{i}"],
                    None if state is None else state[f"rem{i}"])
 
-    # -- forward --------------------------------------------------------------
-    def apply(self, params, x, positions):
+    # -- train / eval forward ----------------------------------------------------
+    def apply(self, params, x, positions, *, remat="none"):
+        cfg, pattern = self.cfg, self.pattern
+
+        def block(x, block_params):
+            aux = 0.0
+            for j, kind in enumerate(pattern):
+                x, a = apply_layer(block_params[f"pos{j}"], x, cfg, kind,
+                                   positions, remat=remat)
+                aux = aux + a
+            return x, aux
+
         aux = 0.0
-        for kind, p, _ in self._layers(params):
-            x, a = apply_layer(p, x, self.cfg, kind, positions)
+        for block_params in self._blocks(params):
+            if remat == "full":
+                x, a = checkpoint(block, x, block_params, use_reentrant=False)
+            else:
+                x, a = block(x, block_params)
+            aux = aux + a
+        for i, kind in enumerate(self.rem):
+            x, a = apply_layer(params[f"rem{i}"], x, cfg, kind, positions,
+                               remat=remat)
             aux = aux + a
         return x, aux
 

@@ -5,7 +5,8 @@ encoder-decoder (whisper) and vision-prefix (VLM) inputs raise.
 
 API:
   init_params(gen, cfg, device="cuda")
-  forward(params, batch, cfg) -> (logits, aux_loss)
+  forward(params, batch, cfg, remat=...) -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, remat=...) -> (loss, metrics)
   init_decode_state(cfg, batch, max_len, device="cuda")
   prefill(params, batch, cfg, state) -> (logits_last, state)
   decode_step(params, token, pos, state, cfg) -> (logits, state)
@@ -57,12 +58,38 @@ def _embed_inputs(params, batch, cfg):
     return x, positions[None].expand(b, s)
 
 
-def forward(params, batch, cfg: ModelConfig):
+def forward(params, batch, cfg: ModelConfig, *, remat="none"):
     """batch: {tokens (b, s)}. Returns (logits over token positions, aux)."""
     x, positions = _embed_inputs(params, batch, cfg)
-    x, aux = _stack(cfg).apply(params["blocks"], x, positions)
+    x, aux = _stack(cfg).apply(params["blocks"], x, positions, remat=remat)
     x = apply_norm(params["final_norm"], x)
     return unembed(params["embed"], x, cfg), aux
+
+
+def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
+    """Next-token cross-entropy in fp32 + aux (0 for a dense FFN).
+    labels == -1 is masked. Returns (total, {"loss", "aux"}).
+
+    Two implementations, as in the JAX twin: the default takes
+    ``log_softmax`` and gathers the label's entry; ``cfg.fused_xent``
+    takes logsumexp minus a masked pick of the label's logit.
+    """
+    logits, aux = forward(params, batch, cfg, remat=remat)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    labels = labels.clamp_min(0).long()
+    lf = logits.float()
+    if cfg.fused_xent:
+        lse = torch.logsumexp(lf, dim=-1)
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        picked = torch.where(vocab == labels[..., None], lf, 0.0).sum(-1)
+        nll = lse - picked
+    else:
+        logp = torch.log_softmax(lf, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + aux, {"loss": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,7 @@ def _params(jc):
     p = jax.tree.map(np.asarray, JA.init_attention(jax.random.PRNGKey(3), jc))
     # non-zero biases, so the bias path is exercised
     p = {k: (v + 0.1 if k.startswith("b") else v) for k, v in p.items()}
-    return jax.tree.map(jnp.asarray, p), bridge.to_torch(p)
+    return jax.tree.map(jnp.asarray, p), bridge.to_torch(p, device="cpu")
 
 
 def _close(t, j):

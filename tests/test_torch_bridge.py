@@ -33,7 +33,7 @@ def _leaves(tree, prefix=""):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_fp32_round_trip_bit_exact(arch):
     _, params = _jax_params(arch)
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     back = bridge.to_numpy(tp)
     a, b = dict(_leaves(params)), dict(_leaves(back))
     assert a.keys() == b.keys()
@@ -45,7 +45,7 @@ def test_fp32_round_trip_bit_exact(arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bf16_round_trip_bit_exact(arch):
     _, params = _jax_params(arch, jnp.bfloat16)
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     for k, t in _leaves(tp):
         assert t.dtype == torch.bfloat16, k
     back = bridge.to_numpy(tp)
@@ -62,7 +62,7 @@ def test_bf16_round_trip_bit_exact(arch):
 def test_keys_and_stacked_layout():
     """embed/{table,unembed}, blocks/pos{j} stacked over n_full, final_norm."""
     cfg, params = _jax_params("llama-65b")
-    tp = bridge.to_torch(params)
+    tp = bridge.to_torch(params, device="cpu")
     assert set(tp) == {"embed", "blocks", "final_norm"}
     assert set(tp["embed"]) == {"table", "unembed"}
     assert set(tp["blocks"]) == {"pos0"}

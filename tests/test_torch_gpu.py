@@ -5,10 +5,13 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances are the JAX kernel tests' own: 3e-5 in fp32, 2.5e-2 in bf16.
+Tolerances are the JAX kernel tests' own: 3e-5 in fp32, 2.5e-2 in bf16
+for the forward, 2e-4 / 1e-3 for the backward's dq, dk and dv in fp32.
 Both sides compute in fp32 from the same inputs, so in bf16 each O element
 is also held to 1e-4 + 1e-2 |O| (one bf16 rounding is at most 2**-7 |O|)
-and the fp32 LSE to 1e-4, as ``chip_smoke.py`` does.
+and the fp32 LSE to 1e-4, as ``chip_smoke.py`` does; a bf16 gradient
+element to 1e-2 |want| + 1e-3 max |want| beside the 2.5e-2 bound (the
+sums run over many more terms than the forward's).
 """
 import pytest
 import torch
@@ -78,3 +81,81 @@ def test_flash_kernel_rejects_wide_heads(cuda):
     q = torch.zeros((1, 8, 2, 136), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
+
+
+def _bwd_inputs(cuda, b, sq, sk, nq, nkv, hd, dtype, seed=0):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn((b, sq, nq, hd), generator=gen, device=cuda).to(dt)
+    k = torch.randn((b, sk, nkv, hd), generator=gen, device=cuda).to(dt)
+    v = torch.randn((b, sk, nkv, hd), generator=gen, device=cuda).to(dt)
+    do = torch.randn((b, sq, nq, hd), generator=gen, device=cuda).to(dt)
+    return q, k, v, do
+
+
+def _assert_grad_close(got, want, dtype):
+    g, w = got.float(), want.float()
+    if dtype == "bfloat16":
+        torch.testing.assert_close(g, w, atol=2.5e-2, rtol=0)
+        bound = 1e-2 * w.abs() + 1e-3 * w.abs().max()
+        assert bool(((g - w).abs() <= bound).all()), float((g - w).abs().max())
+    else:
+        torch.testing.assert_close(g, w, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,hd,dtype,window,softcap,q_offset", CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, sq, sk, nq, nkv, hd, dtype,
+                                       window, softcap, q_offset):
+    q, k, v, do = _bwd_inputs(cuda, b, sq, sk, nq, nkv, hd, dtype)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = (fa.flash_attention_bwd.dq_launches,
+              fa.flash_attention_bwd.dkv_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd.dq_launches,
+            fa.flash_attention_bwd.dkv_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for t, w, src in zip(got, want, (q, k, v)):
+        assert t.dtype == src.dtype and t.shape == src.shape
+        _assert_grad_close(t, w, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernels_are_deterministic(cuda):
+    """One block owns each output tile and no atomics are used: two runs
+    give the same bits."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 300, 300, 8, 2, 64, "bfloat16", 3)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    second = fa.flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_strided_inputs_through_autograd(cuda):
+    """q/k/v as views of one fused projection, and the strided dO an
+    einsum's backward hands over, through ops.flash_attention."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(cuda).manual_seed(2)
+    qkv = torch.randn((2, 70, 3, 4, 64), generator=gen, device=cuda,
+                      requires_grad=True)
+    wo = torch.randn((4, 64, 16), generator=gen, device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = torch.autograd.grad(torch.einsum(
+        "bsnh,nhd->bsd", ops.flash_attention(q, k, v), wo).square().sum(), qkv)
+    want = torch.autograd.grad(torch.einsum(
+        "bsnh,nhd->bsd", ref.flash_attention_ref(q, k, v), wo).square().sum(),
+        qkv)
+    torch.testing.assert_close(got[0], want[0], atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_rejects_wide_heads(cuda):
+    q = torch.zeros((1, 8, 2, 136), device=cuda)
+    lse = torch.zeros((1, 8, 2, 1), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bwd(q, q, q, q, lse, q)

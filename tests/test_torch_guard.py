@@ -11,11 +11,13 @@ import torch
 
 import repro.configs as jcfgs
 import repro_torch.configs as tcfgs
-from repro_torch import serve
+from repro_torch import bridge, serve
+from repro_torch.launch import train as tlaunch
 from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.train import steps as TS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
@@ -23,7 +25,8 @@ IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
 
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += sorted(ROOT.glob("chip_*.py"))
+    assert ROOT / "chip_smoke.py" in files
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in IMPORT.finditer(f.read_text())]
@@ -58,6 +61,33 @@ def test_model_entry_points_default_to_cuda(entry):
         else:
             TM.init_decode_state(cfg, 2, 8)
     assert TM.init_decode_state(cfg, 2, 8, device="cpu")["pos0"]["k"].is_cpu
+
+
+def test_launch_train_without_cpu_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlaunch.main(["--arch", "llama-65b", "--reduced", "--steps", "1",
+                      "--batch", "1", "--seq", "8"])
+
+
+def test_init_all_defaults_to_cuda():
+    assert inspect.signature(TS.init_all).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.init_all(_reduced_llama(), 0)
+    params, opt = TS.init_all(_reduced_llama(), 0, device="cpu")
+    assert params["embed"]["table"].is_cpu and opt.step.is_cpu
+
+
+def test_bridge_to_torch_takes_device_without_default():
+    """A caller on the card who forgets ``device`` must not get CPU
+    tensors that send the model down the plain path unasked."""
+    assert inspect.signature(bridge.to_torch).parameters["device"].default \
+        is inspect.Parameter.empty
+    with pytest.raises(TypeError):
+        bridge.to_torch({"w": [1.0]})
 
 
 @pytest.mark.parametrize("fn", [

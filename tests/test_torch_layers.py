@@ -48,7 +48,7 @@ def test_norm(norm):
         p["bias"] = 0.1 * _x(d)
     x = _x(2, 5, d, scale=3.0) + 0.5
     want = JL.apply_norm(jax.tree.map(jnp.asarray, p), jnp.asarray(x))
-    got = TL.apply_norm(bridge.to_torch(p), torch.from_numpy(x))
+    got = TL.apply_norm(bridge.to_torch(p, device="cpu"), torch.from_numpy(x))
     _close(got, want)
 
 
@@ -68,7 +68,7 @@ def test_mlp(arch):
     p = jax.tree.map(np.asarray, JL.init_mlp(jax.random.PRNGKey(1), jc))
     x = _x(2, 6, jc.d_model)
     want = JL.apply_mlp(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jc)
-    got = TL.apply_mlp(bridge.to_torch(p), torch.from_numpy(x), tc)
+    got = TL.apply_mlp(bridge.to_torch(p, device="cpu"), torch.from_numpy(x), tc)
     _close(got, want)
 
 
@@ -82,7 +82,7 @@ def test_embed_unembed(arch, kw):
     jc, tc = _cfgs(arch, **kw)
     p = jax.tree.map(np.asarray, JL.init_embed(jax.random.PRNGKey(2), jc))
     tok = RNG.integers(0, jc.vocab_size, size=(2, 7)).astype(np.int32)
-    jp, tp = jax.tree.map(jnp.asarray, p), bridge.to_torch(p)
+    jp, tp = jax.tree.map(jnp.asarray, p), bridge.to_torch(p, device="cpu")
     want_x = JL.embed(jp, jnp.asarray(tok), jc)
     got_x = TL.embed(tp, torch.from_numpy(tok).long(), tc)
     _close(got_x, want_x)

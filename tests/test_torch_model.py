@@ -36,7 +36,8 @@ def _setup(arch, kw, impl, num_layers=2):
     jc = dataclasses.replace(get_config(arch).reduced(**kw), **over)
     tc = dataclasses.replace(tget_config(arch).reduced(**kw), **over)
     params = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0), jc))
-    return jc, tc, jax.tree.map(jnp.asarray, params), bridge.to_torch(params)
+    return (jc, tc, jax.tree.map(jnp.asarray, params),
+            bridge.to_torch(params, device="cpu"))
 
 
 def _tokens(cfg, b, s, seed=0):
