@@ -29,7 +29,26 @@ Phases, each fatal on failure:
   7. the training path's output checked at a small fp32 size: the flash arm's
      loss and grads equal the reference arm's, the recompute arms equal no
      recompute, and one train step on the card equals the same step on the
-     CPU.
+     CPU;
+  8. the fused scale-mask-softmax kernels (forward and backward) against
+     their plain versions at the kernel tests' shapes and tolerances and at
+     the paper's GPT-3 score shape (b 2 x 104 heads x 2048 x 2048, bf16,
+     causal, scale 1/sqrt(96)); there ``ops.fused_softmax`` forward and
+     backward once (the op's path, counted), then both kernels timed beside
+     their plain versions, the unfused chain (time and CUDA kernel count)
+     and the bound;
+  9. the pipelined step: ``PipelineExecutor.step`` on llama-65b at full
+     width, 4 layers, p = 4 (one layer per stage), m = 4 microbatches of
+     1 x 2048, flash, bf16 compute, fp32 params, 3 steps under 1f1b and
+     under bpipe: step ms, tokens/s, peak stash per stage, swaps, peak
+     memory, each unit's real saved bytes beside the modelled unit bytes;
+     checks the peaks, the swaps, 1f1b == bpipe (loss and per-leaf grad
+     norms), the loss against ``loss_fn`` and the flash launch counts;
+ 10. the pipelined path at a small fp32 size: every arm of
+     ``repro_torch.launch.pipeline`` (with Adam) on the card against the
+     same arms on the CPU, and a host_offload unit's box off the card
+     between OFFLOAD and FETCH (remat none and attn) with
+     ``memory_allocated`` falling by its bytes.
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -64,6 +83,19 @@ BWD_SWEEP = [
     (1, 40, 2, 2, 32, "float32", 0, 0.0),
 ]
 MAIN = dict(arch="llama-65b", layers=10, batch=4, prompt=2048, gen=16)
+# the fused softmax sweep of tests/test_kernels.py:94-99 (shape, dtype,
+# scale, causal) plus one fp32 case past the kernels' 512-column switch; and
+# the paper's section 3.2 score shape of gpt3-96b
+FS_SWEEP = [
+    ((4, 64, 64), "float32", 1.0, False),
+    ((2, 4, 32, 32), "bfloat16", 0.125, True),
+    ((1, 8, 48, 48), "float32", 0.07, True),
+    ((96, 128), "float32", 2.0, False),
+    ((2, 3, 700, 700), "float32", 0.1, True),   # rows wider than 512: a block a row
+]
+FS_MAIN = ((2, 104, 2048, 2048), "bfloat16", 1.0 / math.sqrt(96), True)
+H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (NVIDIA data sheet)
+PIPE = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048, steps=3)
 TRAIN = dict(arch="llama-65b", layers=4, batch=1, seq=2048, steps=5)
 
 
@@ -115,6 +147,36 @@ def grad_agree(torch, got, want, dtype):
     else:
         ok = ok and bool((err <= G_ATOL32 + G_RTOL32 * w.abs()).all())
     return float(err.max()), ok
+
+
+# Fused softmax: the tests' tolerances (y 1e-6 fp32 / 2e-2 bf16, rows sum to
+# 1 within 2e-2; dx 1e-5 + 1e-4|want| fp32 / 2e-2 bf16). y is about
+# 1/(row+1) at long causal rows, under 2e-2 almost everywhere, so every bf16
+# element of y is also held to O_ATOL + O_RTOL|want| (one bf16 rounding is
+# 2**-8 of |y|), and every bf16 element of dx to FS_DX_RTOL|want| plus
+# FS_DX_ATOL times the mean |want| (a typical |dx|, not the largest).
+FS_DX_RTOL, FS_DX_ATOL = 1e-2, 1e-3
+
+
+def fs_agree(torch, y, want, dx, want_dx, dtype):
+    """(y error, row-sum error, dx error, ok) of both fused softmax kernels
+    against their plain versions."""
+    o, w = y.float(), want.float()
+    g, wg = dx.float(), want_dx.float()
+    y_err = float((o - w).abs().max())
+    row_err = float((o.sum(-1) - 1).abs().max())
+    dx_err = float((g - wg).abs().max())
+    ok = (bool(torch.isfinite(y).all()) and bool(torch.isfinite(dx).all())
+          and row_err <= 2e-2)
+    if dtype == "bfloat16":
+        ok = (ok and y_err <= 2e-2 and dx_err <= 2e-2
+              and bool(((o - w).abs() <= O_ATOL + O_RTOL * w.abs()).all())
+              and bool(((g - wg).abs() <= FS_DX_RTOL * wg.abs()
+                        + FS_DX_ATOL * wg.abs().mean()).all()))
+    else:
+        ok = (ok and y_err <= 1e-6
+              and bool(((g - wg).abs() <= 1e-5 + 1e-4 * wg.abs()).all()))
+    return y_err, row_err, dx_err, ok
 
 
 def time_ms(torch, fn, iters, warmup=2):
@@ -237,9 +299,19 @@ def profile_window(torch, label, fn, top=8):
 
 
 def counts_zero(fa):
+    """Set every kernel's launch count to 0."""
+    from repro_torch.kernels import fused_softmax as fs
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_bwd.dq_launches = 0
     fa.flash_attention_bwd.dkv_launches = 0
+    fs.fused_softmax_fwd.launches = 0
+    fs.fused_softmax_bwd.launches = 0
+
+
+def fs_counts_read():
+    from repro_torch.kernels import fused_softmax as fs
+    return {"fused_softmax_fwd": fs.fused_softmax_fwd.launches,
+            "fused_softmax_bwd": fs.fused_softmax_bwd.launches}
 
 
 def counts_read(fa):
@@ -373,22 +445,448 @@ def train_checks(torch, dev):
             if not ok:
                 fail(f"remat={remat} changes the {impl} arm's loss or grads, "
                      f"or the forward kernel count")
-    # one train step on the card equals the same step on the CPU
+    # one train step on the card against the CPU, each piece on the same
+    # inputs: the loss (1e-5) and grads (2e-4 + 1e-3|want|) against the
+    # CPU's, and the card's Adam update of its grads (the flash arm's above:
+    # the kernels are deterministic, so the step takes the same) against the
+    # CPU's Adam update of the same params and grads (1e-5 per-leaf relative
+    # norm of the update). Adam divides each grad by its rms, so two correct
+    # steps whose grads differ by rounding move small-grad elements apart by
+    # up to 2 lr: params after the two whole steps are printed, not held.
     tcfg = TrainConfig(steps=10, warmup_steps=2, learning_rate=1e-3)
     step = make_train_step(cfg, tcfg)
-    cpu_params = T.tree_map(lambda t: t.to("cpu", copy=True), params)
+    to_cpu = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    p0 = to_cpu(params)
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
-    cpu_params, _, cpu_m = step(cpu_params, adam.init(cpu_params), cpu_batch)
+    cpu_loss, cpu_grads = make_loss_grad(cfg, tcfg)(to_cpu(p0), cpu_batch)
     params, _, m = step(params, adam.init(params), batch)
-    loss_err = abs(float(m["loss"]) - float(cpu_m["loss"]))
-    rel = max(float((a.cpu() - b).norm() / b.norm())
-              for a, b in zip(T.leaves(params), T.leaves(cpu_params)))
-    ok = loss_err <= 1e-5 and rel <= 1e-5
+    want, _, _ = adam.update(to_cpu(p0), to_cpu(f_grads), adam.init(p0), tcfg)
+    cpu_step, _, _ = adam.update(to_cpu(p0), cpu_grads, adam.init(p0), tcfg)
+    loss_err = abs(float(m["loss"]) - float(cpu_loss))
+    upd = max(float(((a.cpu() - w0) - (b - w0)).norm() / (b - w0).norm())
+              for a, b, w0 in zip(T.leaves(params), T.leaves(want), T.leaves(p0)))
+    whole = max(float((a.cpu() - b).norm() / b.norm())
+                for a, b in zip(T.leaves(params), T.leaves(cpu_step)))
+    ok = (loss_err <= 1e-5 and upd <= 1e-5
+          and close(to_cpu(f_grads), cpu_grads, 2e-4, 1e-3))
     print(f"[check] one train step on the card vs on the CPU: loss err "
-          f"{loss_err:.3e} (tol 1e-5), params max per-leaf relative norm err "
-          f"{rel:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}")
+          f"{loss_err:.3e} (tol 1e-5), grads max_abs_err "
+          f"{max_err(to_cpu(f_grads), cpu_grads):.3e} (tol 2e-4 + 1e-3|want|), "
+          f"Adam update of the same params and grads max per-leaf relative "
+          f"norm err {upd:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}; params "
+          f"after the two whole steps max per-leaf relative norm err {whole:.3e}")
     if not ok:
         fail("a train step on the card disagrees with the same step on the CPU")
+
+
+def graph_nodes(torch, fn):
+    """The nodes of one call of ``fn`` captured in a CUDA graph, by type:
+    {"kernel": n, "memset": n, "memcpy": n, "other": n}. The GPU analogue of
+    kernel_bench.fusion_count: capture records every launch, where the
+    profiler's activity buffers can drop kernel records."""
+    import ctypes
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(err):
+        if err:
+            fail(f"the CUDA driver refused a graph query: CUresult {err}")
+
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)))
+    # CUgraphNodeType: 0 kernel, 1 memcpy, 2 memset
+    out = {"kernel": 0, "memcpy": 0, "memset": 0, "other": 0}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        out[{0: "kernel", 1: "memcpy", 2: "memset"}.get(kind.value, "other")] += 1
+    del graph
+    torch.cuda.synchronize()
+    return out
+
+
+def fused_softmax_phase(torch, dev, gen, smi):
+    """Phase 8: both fused softmax kernels against their plain versions, the
+    op's path at the section 3.2 shape, and the timings. Returns the rows'
+    numbers by kernel name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_softmax as fs
+    from repro_torch.kernels import ops, ref
+
+    def inputs(shape, dtype):
+        x = (torch.randn(shape, generator=gen, device=dev) * 4).to(getattr(torch, dtype))
+        return x, torch.randn(shape, generator=gen, device=dev).to(x.dtype)
+
+    err = {"fused_softmax_fwd": 0.0, "fused_softmax_bwd": 0.0}
+    for shape, dtype, scale, causal in FS_SWEEP + [FS_MAIN]:
+        x, dy = inputs(shape, dtype)
+        y = fs.fused_softmax_fwd(x, scale=scale, causal=causal)
+        dx = fs.fused_softmax_bwd(y, dy, scale=scale)
+        torch.cuda.synchronize()
+        want = ref.fused_softmax_ref(x, scale=scale, causal=causal)
+        want_dx = ref.fused_softmax_bwd_ref(y, dy, scale=scale)
+        y_err, row_err, dx_err, ok = fs_agree(torch, y, want, dx, want_dx, dtype)
+        print(f"[check] fused_softmax {tuple(shape)} {dtype} scale {scale:.4g} "
+              f"causal {causal}: max_abs_err y {y_err:.3e} (rows sum to 1 within "
+              f"{row_err:.3e}) dx {dx_err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"a fused softmax kernel disagrees with its plain version at "
+                 f"{shape} {dtype}")
+        err["fused_softmax_fwd"] = max(err["fused_softmax_fwd"], y_err)
+        err["fused_softmax_bwd"] = max(err["fused_softmax_bwd"], dx_err)
+        del x, dy, y, dx, want, want_dx
+    torch.cuda.empty_cache()
+    # the op's grads against autograd through the plain version
+    # (tests/test_kernels.py:110-117: fp32, causal, scale 0.5, atol 1e-5 rtol 1e-4)
+    x = torch.randn((2, 2, 16, 16), generator=gen, device=dev).requires_grad_(True)
+    g1, = torch.autograd.grad((ops.fused_softmax(x, 0.5, True) ** 2).sum(), x)
+    g2, = torch.autograd.grad(
+        (ref.fused_softmax_ref(x, scale=0.5, causal=True) ** 2).sum(), x)
+    ok = bool(((g1 - g2).abs() <= 1e-5 + 1e-4 * g2.abs()).all())
+    # the unfused chain against the fused op (tests/test_kernels.py:120-127)
+    xb = torch.randn((4, 32, 32), generator=gen, device=dev).to(torch.bfloat16)
+    chain_err = float((ops.unfused_softmax_chain(xb, 0.3, True).float()
+                       - ops.fused_softmax(xb, 0.3, True).float()).abs().max())
+    ok = ok and chain_err <= 1e-2
+    print(f"[check] ops.fused_softmax grad vs autograd of the plain version: "
+          f"max_abs_err {float((g1 - g2).abs().max()):.3e} (tol 1e-5 + "
+          f"1e-4|want|); unfused chain vs fused {chain_err:.3e} (tol 1e-2) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("ops.fused_softmax's grad or the unfused chain disagrees")
+
+    # the op's path at the section 3.2 shape: one forward and its backward
+    shape, dtype, scale, causal = FS_MAIN
+    x, dy = inputs(shape, dtype)
+    xg = x.detach().requires_grad_(True)
+    counts_zero(fa)
+    y = ops.fused_softmax(xg, scale, causal)
+    dx, = torch.autograd.grad(y, xg, dy)
+    torch.cuda.synchronize()
+    launches = fs_counts_read()
+    print(f"[fused_softmax] ops.fused_softmax forward + backward at "
+          f"{tuple(shape)} {dtype} causal scale 1/sqrt(96): launches {launches}")
+    if launches != {"fused_softmax_fwd": 1, "fused_softmax_bwd": 1}:
+        fail(f"ops.fused_softmax launched {launches}, want one of each")
+    del xg, dx
+    y = y.detach()
+    n = x.numel()
+    # the forward needs x only where the causal mask keeps it (the kernel
+    # loads no masked element): row r of each sk x sk block keeps r + 1
+    kept = n * (shape[-1] + 1) // (2 * shape[-1]) if causal else n
+    rows = {}
+    for name, n_bytes, n_ops, kernel, plain, library in (
+            ("fused_softmax_fwd", (kept + n) * x.element_size(), 6 * kept + n,
+             lambda: fs.fused_softmax_fwd(x, scale=scale, causal=causal),
+             lambda: ref.fused_softmax_ref(x, scale=scale, causal=causal), None),
+            ("fused_softmax_bwd", 3 * n * x.element_size(), 5 * n,
+             lambda: fs.fused_softmax_bwd(y, dy, scale=scale),
+             lambda: ref.fused_softmax_bwd_ref(y, dy, scale=scale),
+             lambda: torch._softmax_backward_data(dy, y, -1, y.dtype))):
+        t_bytes, t_ops = n_bytes / H100_HBM_BYTES_S, n_ops / H100_FP32_FLOPS
+        rows[name] = dict(
+            max_abs_err=err[name], launches=launches[name],
+            ms=time_ms(torch, kernel, 10), plain_ms=time_ms(torch, plain, 3, warmup=1),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None if library is None else time_ms(torch, library, 10))
+    chain = lambda: ops.unfused_softmax_chain(x, scale, causal)
+    chain_ms = time_ms(torch, chain, 3, warmup=1)
+    chain_nodes = graph_nodes(torch, chain)
+    fused_nodes = graph_nodes(
+        torch, lambda: fs.fused_softmax_fwd(x, scale=scale, causal=causal))
+    chain_kernels, fused_kernels = chain_nodes["kernel"], fused_nodes["kernel"]
+    if fused_kernels != launches["fused_softmax_fwd"]:
+        fail(f"one fused forward captured as {fused_nodes}, want "
+             f"{launches['fused_softmax_fwd']} kernel as its counter says")
+    softmax_ms = time_ms(torch, lambda: torch.softmax(x, dim=-1), 10)
+    rows["fused_softmax_fwd"].update(unfused_chain_ms=chain_ms,
+                                     unfused_chain_kernels=chain_kernels,
+                                     kernels=fused_kernels)
+    for name, r in rows.items():
+        lib = ("" if r["library_ms"] is None else
+               f", torch._softmax_backward_data {r['library_ms']:.4f} ms (no scale)")
+        print(f"[time] {name} {tuple(shape)} {dtype} causal: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}); card {smi}")
+    print(f"[time] unfused chain (upcast, scale, mask, softmax, downcast) "
+          f"{chain_ms:.4f} ms in {chain_kernels} CUDA kernels (one call captured "
+          f"in a CUDA graph: nodes {chain_nodes}), the fused forward in "
+          f"{fused_kernels} (nodes {fused_nodes}; launch counter "
+          f"{launches['fused_softmax_fwd']}); torch.softmax alone (bf16, no "
+          f"scale or mask) {softmax_ms:.4f} ms; card {smi}")
+    del x, dy, y
+    torch.cuda.empty_cache()
+    return rows
+
+
+def pipeline_path(torch, dev, smi):
+    """Phase 9: the pipelined step at full width under 1f1b and bpipe.
+    Returns the flash launch counts of each arm's executor steps."""
+    import contextlib
+    import statistics
+
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.notation import Notation
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.memory import offload as mem_offload
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+
+    t = PIPE
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash")
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    bsz = t["m"] * t["micro"]
+    dc = DataConfig(batch=bsz, seq_len=t["seq"])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, dc, i).items()}
+               for i in range(t["steps"])]
+    n = Notation(a=cfg.num_heads, b=t["micro"], h=cfg.d_model, l=cfg.num_layers,
+                 s=t["seq"], v=cfg.vocab_size, B=bsz, p=t["p"], t=1)
+    modelled = mm.sliced_unit_bytes(n, "flash", 1, 1)
+    real = []
+
+    class Box(mem_offload.Box):  # records each unit's saved bytes
+        def hooks(self):
+            @contextlib.contextmanager
+            def filled():
+                with super(Box, self).hooks():
+                    yield
+                real.append(self.nbytes())
+            return filled()
+
+    out = {}
+    plain_box, mem_offload.Box = mem_offload.Box, Box
+    try:
+        for kind in ("1f1b", "bpipe"):
+            ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
+                                  micro_batch=t["micro"], remat="flash")
+            real.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counts_zero(fa)
+            times, res = [], None
+            for batch in batches:
+                del res
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = ex.step(params, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            counts = counts_read(fa)
+            peak = torch.cuda.max_memory_allocated()
+            step_s = statistics.median(times)
+            st = res.stats
+            norms = [float(g.float().norm()) for g in T.leaves(res.grads)]
+            out[kind] = dict(counts=counts, loss=float(res.loss), norms=norms,
+                             stats=st, step_ms=1e3 * step_s, peak=peak)
+            print(f"[pipeline] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+                  f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
+                  f"attn={cfg.attn_impl} {kind} p{t['p']} m{t['m']} x "
+                  f"{t['micro']} x {t['seq']}: steps "
+                  f"{' / '.join(f'{1e3 * s:.2f}' for s in times)} ms, median "
+                  f"{1e3 * step_s:.2f} ms, {bsz * t['seq'] / step_s:.1f} tokens/s; "
+                  f"loss {res.loss.item():.6f}; peak stash/stage "
+                  f"{[st.peak_local[i] for i in range(t['p'])]}, evictions "
+                  f"{st.evictions} loads {st.loads}; max_memory_allocated "
+                  f"{peak / 2**30:.2f} GiB; saved bytes per unit {min(real) / 2**30:.3f}"
+                  f"-{max(real) / 2**30:.3f} GiB real vs {modelled / 2**30:.3f} GiB "
+                  f"modelled (memory_model, flash arm); card {smi}")
+            print(f"[pipeline] {kind} launches over its {t['steps']} steps: {counts}")
+            if kind == "1f1b":  # where the time goes: one more step, profiled
+                del res
+                profile_window(torch, "pipelined step (1f1b)",
+                               lambda: ex.step(params, batches[0]), top=12)
+                res = None
+            del res, ex
+            torch.cuda.empty_cache()
+    finally:
+        mem_offload.Box = plain_box
+    a, b = out["1f1b"], out["bpipe"]
+    want = [min(t["p"] - i, t["m"]) for i in range(t["p"])]
+    ok_peaks = [a["stats"].peak_local[i] for i in range(t["p"])] == want
+    from repro_torch.core import schedule as S
+    ok_bpipe = (max(b["stats"].peak_local.values()) <= S.bpipe_cap(t["p"])
+                and b["stats"].evictions == b["stats"].loads > 0)
+    same = a["loss"] == b["loss"] and a["norms"] == b["norms"]
+    with torch.no_grad():
+        ref_loss, _ = M.loss_fn(params, {k: v for k, v in batches[-1].items()}, cfg)
+    ref_loss = float(ref_loss)
+    # bf16 compute: loss_fn runs the 4 rows through one batched GEMM where the
+    # pipeline runs each microbatch alone, so GEMM tiling and the bf16
+    # rounding of activations differ; the loss is a mean over 8192 fp32 nlls
+    loss_err = abs(b["loss"] - ref_loss)
+    want_launches = t["layers"] * t["m"] * t["steps"]
+    ok_launches = all(v == want_launches for arm in out.values()
+                      for v in arm["counts"].values())
+    ok = ok_peaks and ok_bpipe and same and loss_err <= 1e-2 and ok_launches
+    print(f"[check] pipelined step: 1f1b peaks {want} {ok_peaks}; bpipe under "
+          f"cap {S.bpipe_cap(t['p'])} with evictions == loads > 0 {ok_bpipe}; "
+          f"1f1b and bpipe loss and per-leaf grad norms bit-equal {same}; last "
+          f"loss {b['loss']:.6f} vs loss_fn {ref_loss:.6f} (err {loss_err:.3e}, "
+          f"tol 1e-2); flash launches {want_launches} per kernel per arm "
+          f"{ok_launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the pipelined step's peaks, swaps, losses or launches are wrong")
+    del params, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipeline_checks(torch, dev):
+    """Phase 10: every arm of the pipeline launcher on the card against the
+    CPU at a small fp32 size, and a host_offload unit's box off the card."""
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.launch import pipeline as launch_pipeline
+    from repro_torch.memory import offload as mem_offload
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+
+    # the launcher's arms, with Adam: each step's loss on the card equals the
+    # CPU's within 1e-5 (the second step's loss reads the first update)
+    argv = ["--steps", "2"]
+    card = launch_pipeline.main(argv + ["--device", "cuda"])
+    cpu = launch_pipeline.main(argv + ["--device", "cpu"])
+    for label, r in card["arms"].items():
+        c = cpu["arms"][label]
+        loss_err = max(abs(x - y) for x, y in zip(r["losses"], c["losses"]))
+        # Adam divides each grad by its running rms, so where an element's
+        # grad is small the update takes up the grads' rounding: the params
+        # after Adam are printed here, and each piece of a step is held
+        # below on the same inputs on both sides
+        rel, worst = max((float((a.cpu() - b).norm() / b.norm()), "/".join(map(str, path)))
+                         for (path, a), b in zip(T.leaves_with_paths(r["params"]),
+                                                 T.leaves(c["params"])))
+        ok = loss_err <= 1e-5
+        print(f"[check] pipeline {label} on the card vs the CPU, 2 steps with "
+              f"Adam: loss err {loss_err:.3e} (tol 1e-5) {'ok' if ok else 'FAIL'}; "
+              f"params after Adam max per-leaf relative norm err {rel:.3e} ({worst})")
+        if not ok:
+            fail(f"the pipelined arm {label} on the card disagrees with the CPU")
+    # the launcher's loop again, one step at a time: from the CPU's params
+    # and moments, the card's executor grads against the CPU's (the flash
+    # arm's 2e-4 + 1e-3|want|, as the training check above), and the card's
+    # Adam update of those inputs against the CPU's Adam update of the same
+    # params, moments and card grads (slice 2's 1e-5 per-leaf relative norm,
+    # on every leaf's update)
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim import adam
+    cfg = card["cfg"]
+    tcfg = TrainConfig(global_batch=8, steps=2, warmup_steps=1, learning_rate=1e-3)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    to = lambda tree, d: T.tree_map(lambda t: t.to(d, copy=True), tree)
+    to_opt = lambda o, d: adam.AdamState(o.step.to(d), to(o.m, d), to(o.v, d))
+    for kind, res in launch_pipeline.arms(4, 8, 2):
+        spec = ScheduleSpec(kind, 4, 8, v=2, residency=res)
+        ex = PipelineExecutor(cfg, spec)
+        p_cpu = to(params, "cpu")
+        o_cpu = adam.init(p_cpu)
+        for i in range(2):
+            batch = {k: torch.from_numpy(v) for k, v in make_batch(
+                cfg, DataConfig(batch=8, seq_len=32), i).items()}
+            got = ex.step(to(p_cpu, dev), to(batch, dev))
+            want = ex.step(p_cpu, batch)
+            g_err = max(float((a.cpu() - b).abs().max())
+                        for a, b in zip(T.leaves(got.grads), T.leaves(want.grads)))
+            ok = abs(float(got.loss) - float(want.loss)) <= 1e-5 and all(
+                bool(((a.cpu() - b).abs() <= 2e-4 + 1e-3 * b.abs()).all())
+                for a, b in zip(T.leaves(got.grads), T.leaves(want.grads)))
+            p_card, _, _ = adam.update(to(p_cpu, dev), got.grads,
+                                       to_opt(o_cpu, dev), tcfg)
+            p_ref, _, _ = adam.update(to(p_cpu, "cpu"), to(got.grads, "cpu"),
+                                      to_opt(o_cpu, "cpu"), tcfg)
+            upd, upd_leaf = max(
+                (float(((a.cpu() - p0) - (b - p0)).norm() / (b - p0).norm()),
+                 "/".join(map(str, path)))
+                for (path, a), b, p0 in zip(T.leaves_with_paths(p_card),
+                                            T.leaves(p_ref), T.leaves(p_cpu)))
+            ok = ok and upd <= 1e-5
+            print(f"[check] executor {kind}+{res} step {i} on the card vs the CPU: "
+                  f"loss err {abs(float(got.loss) - float(want.loss)):.3e} (tol 1e-5), "
+                  f"grads max_abs_err {g_err:.3e} (tol 2e-4 + 1e-3|want|), Adam "
+                  f"update of the same inputs max per-leaf relative norm err "
+                  f"{upd:.3e} ({upd_leaf}; tol 1e-5) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the executor's {kind}+{res} step {i} on the card disagrees "
+                     f"with the CPU")
+            p_cpu, o_cpu, _ = adam.update(p_cpu, want.grads, o_cpu, tcfg)
+        same = all(torch.equal(a, b) for a, b in zip(
+            T.leaves(p_cpu), T.leaves(cpu["arms"][launch_pipeline.arm_label(spec)]["params"])))
+        print(f"[check] executor {kind}+{res}: these two CPU steps give the "
+              f"launcher's CPU params bit for bit {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            fail(f"the executor loop is not the launcher's {kind}+{res} arm")
+    del card, cpu, params, batch, p_cpu, o_cpu, p_card, p_ref, got, want
+
+    # a host_offload unit's box between OFFLOAD and FETCH
+    moves = []
+    to_host, to_device = mem_offload.to_host, mem_offload.to_device
+
+    def settled():
+        torch.cuda.synchronize()
+        torch.empty(1, device=dev)  # lets the allocator retire freed blocks
+        return torch.cuda.memory_allocated()
+
+    def host(stash):
+        before, nbytes = settled(), stash.box.nbytes()
+        n_storages = len(stash.box.storages)
+        to_host(stash)
+        fell = before - settled()
+        moves.append(("offload", nbytes, fell, n_storages,
+                      all(st.device.type == "cpu" for st in stash.box.storages)))
+        return stash
+
+    def device(stash):
+        off = all(st.device.type == "cpu" for st in stash.box.storages)
+        before = settled()
+        to_device(stash)
+        moves.append(("fetch", stash.box.nbytes(), settled() - before,
+                      len(stash.box.storages), off))
+        return stash
+
+    cfg = serve.config_for(PIPE["arch"], layers=4, attn_impl="flash", reduced=True)
+    params = M.init_params(torch.Generator(dev).manual_seed(6), cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    mem_offload.to_host, mem_offload.to_device = host, device
+    try:
+        for remat in ("none", "attn"):
+            moves.clear()
+            spec = ScheduleSpec("1f1b", 4, 4, residency="host_offload")
+            res = PipelineExecutor(cfg, spec, micro_batch=1, remat=remat).step(params, batch)
+            base = PipelineExecutor(cfg, ScheduleSpec("1f1b", 4, 4), micro_batch=1,
+                                    remat=remat).step(params, batch)
+            same = float(res.loss) == float(base.loss) and all(
+                torch.equal(a, b) for a, b in zip(T.leaves(res.grads), T.leaves(base.grads)))
+            # each storage's block is its bytes rounded up to 512
+            ok = (same and len(moves) == 2 * res.stats.offloads > 0 and all(
+                off and n > 0 and n <= fell <= n + 512 * k for _, n, fell, k, off in moves))
+            print(f"[check] host_offload remat={remat}: {res.stats.offloads} units "
+                  f"offloaded; (move, box bytes, memory_allocated change, storages, "
+                  f"box off the card) {moves}; loss and grads equal to plain 1f1b "
+                  f"{same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"a host_offload unit left tensors on the card (remat={remat})")
+    finally:
+        mem_offload.to_host, mem_offload.to_device = to_host, to_device
 
 
 def main():
@@ -411,18 +909,21 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}")
+          f"{torch.cuda.get_device_name(0)}; host {os.cpu_count()} CPUs, torch "
+          f"CPU threads {torch.get_num_threads()}, CPU capability "
+          f"{torch.backends.cpu.get_cpu_capability()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"]
+    kernels = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+               "fused_softmax_fwd", "fused_softmax_bwd"]
     t0 = time.perf_counter()
     build.build(kernels)
     print(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs.items():
         entry = name
         for line in log.splitlines():
-            m = re.search(r"(fwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
-            if m:  # the instance: element type and padded head_dim
+            m = re.search(r"(fwd|bwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
+            if m:  # the instance: element type and padded head_dim (or threads a row)
                 entry = (f"{m.group(1)}_kernel<{'float' if m.group(2) == 'f' else 'bf16'}, "
                          f"{m.group(3)}>")
             elif "registers" in line or "spill" in line:
@@ -656,28 +1157,48 @@ def main():
     # -- 7. is the training path right ---------------------------------------------------
     train_checks(torch, dev)
 
+    # -- 8. the fused softmax kernels and the op's path -------------------------------
+    fs_rows = fused_softmax_phase(torch, dev, gen, smi)
+
+    # -- 9. the pipelined step at full width ---------------------------------------------
+    pipe = pipeline_path(torch, dev, smi)
+
+    # -- 10. is the pipelined path right ---------------------------------------------------
+    pipeline_checks(torch, dev)
+
+    def by_path(name):
+        return {"serve": serve_counts.get(name, 0), "train": train_counts.get(name, 0),
+                **{f"pipeline {kind}": arm["counts"][name] for kind, arm in pipe.items()}}
+
     print(json.dumps({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:31",
-         "launches": train_counts["flash_attention_fwd"],
-         "launches_by_path": {"serve": launches,
-                              "train": train_counts["flash_attention_fwd"]},
+         "launches": sum(arm["counts"]["flash_attention_fwd"] for arm in pipe.values()),
+         "launches_by_path": by_path("flash_attention_fwd"),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
     ] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",
          "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-         "launches": train_counts[name],
-         "launches_by_path": {"serve": serve_counts[name],
-                              "train": train_counts[name]},
+         "launches": sum(arm["counts"][name] for arm in pipe.values()),
+         "launches_by_path": by_path(name),
          "max_abs_err": bwd_err[name], "ms": bwd_ms_by[name],
          "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": bwd_library_ms,
          "library_computes": "dq, dk and dv together"}
         for name, line in (("flash_attention_dq", 220),
-                           ("flash_attention_dkv", 259))]}))
+                           ("flash_attention_dkv", 259))
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "replaces": f"src/repro/kernels/fused_softmax.py:{line}",
+         **fs_rows[name],
+         "launches_by_path": {"ops.fused_softmax at (2, 104, 2048, 2048)": fs_rows[name]["launches"]},
+         **({"library_computes": "dx without the scale"}
+            if name == "fused_softmax_bwd" else {})}
+        for name, line in (("fused_softmax_fwd", 22), ("fused_softmax_bwd", 35))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

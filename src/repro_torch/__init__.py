@@ -6,10 +6,13 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of falling back.
 
 Ported so far: the serving path of the dense decoders (prefill + greedy
-decode) with a hand-written CUDA flash-attention forward, and the
+decode) with a hand-written CUDA flash-attention forward; the
 single-device training step (``launch.train``: loss, recompute arms,
 Adam, data, checkpoints) with hand-written CUDA flash-attention dq and
-dk/dv backward kernels.
+dk/dv backward kernels; the pipelined step (``pipeline.PipelineExecutor``,
+``launch.pipeline``: GPipe, 1F1B, BPipe, interleaved, the residency
+policies) over the port's own copies of the schedule layer; the fused
+scale-mask-softmax op with hand-written CUDA forward and backward kernels.
 """
 from __future__ import annotations
 

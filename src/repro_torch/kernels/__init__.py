@@ -6,6 +6,9 @@
     two-pass backward: dq (csrc/flash_attention_dq.cu) and dk/dv
     (csrc/flash_attention_dkv.cu), P recomputed from the LSE, one block per
     output tile (no atomics), the same masks and tile skipping.
+  fused_softmax.py — fused scale-mask-softmax forward (csrc/fused_softmax_fwd.cu:
+    online max and sum per row, then the normalised write) and backward
+    (csrc/fused_softmax_bwd.cu: the row's sum of y dy, then dx).
 
 ops.py = autograd wrappers; ref.py = plain-torch oracles; build.py = nvcc
 build at first use + ctypes loading.

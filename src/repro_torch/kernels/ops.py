@@ -3,8 +3,15 @@
 ``flash_attention``: the CUDA forward (``flash_attention.flash_attention_fwd``)
 saving O and the LSE, and the two-pass CUDA backward
 (``flash_attention.flash_attention_bwd``: the dq and dk/dv kernels) that
-recomputes P from them, the twin of the JAX package's ``custom_vjp``. On
-CPU tensors both take their plain PyTorch versions.
+recomputes P from them, the twin of the JAX package's ``custom_vjp``.
+
+``fused_softmax``: the CUDA fused scale-mask-softmax forward saving y and
+the CUDA backward (``fused_softmax.fused_softmax_fwd`` / ``_bwd``).
+``unfused_softmax_chain`` is not a kernel: it is the staged baseline the
+fused op is held against (upcast, scale, mask, softmax, downcast as separate
+torch ops), the paper's exp-(7) chain.
+
+On CPU tensors the kernels' wrappers take their plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -13,6 +20,9 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                  flash_attention_fwd)
+from repro_torch.kernels.fused_softmax import (fused_softmax_bwd,
+                                               fused_softmax_fwd)
+from repro_torch.kernels.ref import NEG_INF
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -44,3 +54,41 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None,
     keys). 0 is plain full-sequence attention."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                  q_offset)
+
+
+class _FusedSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, causal):
+        y = fused_softmax_fwd(x, scale=scale, causal=causal)
+        ctx.save_for_backward(y)
+        ctx.scale = scale
+        return y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (y,) = ctx.saved_tensors
+        return fused_softmax_bwd(y, grad, scale=ctx.scale), None, None
+
+
+def fused_softmax(x, scale=1.0, causal=False):
+    """x: (..., sq, sk) attention scores; fused upcast+scale+mask+softmax."""
+    if causal:
+        assert x.shape[-2] == x.shape[-1], \
+            "causal fused softmax expects square scores"
+    return _FusedSoftmax.apply(x, scale, causal)
+
+
+def unfused_softmax_chain(x, scale=1.0, causal=False):
+    """The paper's exp-(7) *unfused* chain, staged as separate ops (upcast,
+    scale, mask, softmax, downcast): the baseline the fused kernel is
+    compared against."""
+    xf = x.float()
+    xf = xf * scale
+    if causal:
+        sq, sk = x.shape[-2:]
+        mask = (torch.arange(sq, device=x.device)[:, None]
+                >= torch.arange(sk, device=x.device)[None, :])
+        xf = torch.where(mask, xf, NEG_INF)
+    y = torch.softmax(xf, dim=-1)
+    return y.to(x.dtype)

@@ -122,3 +122,25 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True, window=0,
     delta = flash_attention_delta(out, dout, lse)
     dq = flash_attention_dq_ref(q, k, v, lse, delta, dout, **kw)
     return (dq, *flash_attention_dkv_ref(q, k, v, lse, delta, dout, **kw))
+
+
+def fused_softmax_ref(x, *, scale=1.0, causal=False):
+    """The fused softmax forward kernel's function on x (..., sq, sk): fp32
+    upcast, scale, the causal mask (square scores) to NEG_INF, a
+    max-subtracted softmax, downcast to x's dtype."""
+    xf = x.float() * scale
+    if causal:
+        sq, sk = x.shape[-2:]
+        mask = (torch.arange(sq, device=x.device)[:, None]
+                >= torch.arange(sk, device=x.device)[None, :])
+        xf = torch.where(mask, xf, NEG_INF)
+    e = torch.exp(xf - xf.amax(-1, keepdim=True))
+    return (e / e.sum(-1, keepdim=True)).to(x.dtype)
+
+
+def fused_softmax_bwd_ref(y, dy, *, scale=1.0):
+    """The fused softmax backward kernel's function: dx = y (dy - sum(y dy))
+    scale over the last axis, in fp32, downcast to y's dtype."""
+    yf, dyf = y.float(), dy.float()
+    dot = (yf * dyf).sum(-1, keepdim=True)
+    return ((yf * (dyf - dot)) * scale).to(y.dtype)

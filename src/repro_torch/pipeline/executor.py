@@ -1,0 +1,324 @@
+"""Executable pipeline runtime: a schedule interpreter with true 1F1B /
+BPipe activation-stash semantics, chunk-aware for interleaved schedules —
+the twin of the JAX package's ``repro/pipeline/executor.py``.
+
+A compiled ``plan.Schedule`` is interpreted instruction by instruction as a
+handler set over the port's copy of the shared dispatch engine
+(``plan.run``). Each F runs its (virtual) stage with autograd on, so the
+stash — the autograd graph and the tensors it saved — is *really* held until
+the matching B. The forward runs under the saved-tensor hooks of a
+``memory.offload.Box``: every tensor autograd saves that the step does not
+hold anyway (the stage's parameters, its input leaves, the micro-batch)
+lands in the unit's box. A stash unit is ``Graph(out, leaves, box)``: the
+stage's outputs (the graph hangs off them), the leaves B differentiates to
+(the stage's params, then the carry's), and the box; under recompute
+residency the boundary input (the carry) is kept beside it.
+
+  * B is ``torch.autograd.grad(out, leaves, grad_outputs=cot)``: it consumes
+    the graph as ``vjp_fn(cot)`` does, and the grads accumulate per virtual
+    stage.
+  * EVICT/LOAD move stash entries between the evictor's and acceptor's
+    stores: on one card this is bookkeeping plus the byte accounting from
+    ``core.memory_model``, as in the JAX executor on one host.
+  * OFFLOAD/FETCH move the box to pinned host memory and back
+    (``memory.offload``), each as its compiled ISSUE/WAIT halves over the
+    bounded-depth transfer runtime (``transfer.runtime``).
+  * DROP frees the graph and keeps the boundary input; RECOMPUTE re-runs
+    the stage forward from it (deterministic, so bit-identical).
+
+Interleaved kinds give each device v model chunks: chunk c on device s is
+virtual stage ``c*p + s`` and every stash / routing key is (stage, mb,
+chunk). Sequence-sliced schedules (``seq_chunks`` > 1) are not ported yet
+(ROADMAP A8).
+
+Numerical contract (tested against the JAX executor and against
+``models.model.loss_fn``): for any schedule kind,
+    executor.step(params, batch).loss == loss_fn(params, batch)
+and gradients match to fp32 tolerance. BPipe's cap is asserted on the live
+store, not on paper.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import memory_model as mm
+from repro_torch.core import plan as P
+from repro_torch.core.notation import Notation
+from repro_torch.core.schedule import B, F
+from repro_torch.memory import offload as mem_offload
+from repro_torch.memory import policy as respol
+from repro_torch.memory.store import ActivationStore, StoreStats
+from repro_torch.obs.events import Recorder, Span
+from repro_torch.pipeline import stage as stage_mod
+from repro_torch.transfer.channel import channel_key
+from repro_torch.transfer.runtime import AsyncTransferRuntime
+
+
+@dataclasses.dataclass
+class StepResult:
+    loss: torch.Tensor
+    grads: Any
+    stats: StoreStats
+    # Spans of the traced step (``obs.events.Span``), wall-clock seconds
+    # relative to step start. None unless step(trace=True).
+    events: Optional[List[Span]] = None
+
+
+@dataclasses.dataclass
+class Graph:
+    """One stash unit: the stage's outputs (the autograd graph hangs off
+    them), the leaves its backward differentiates to (the stage's params,
+    then the carry's) and the box of saved tensors."""
+    out: Tuple[torch.Tensor, ...]
+    leaves: List[torch.Tensor]
+    box: mem_offload.Box
+
+
+def _add(a, b):
+    return b if a is None else a if b is None else a + b
+
+
+class PipelineExecutor:
+    """Interprets a pipeline schedule over a real model.
+
+        PipelineExecutor(cfg, ScheduleSpec("bpipe", p=4), micro_batch=2)
+
+    A spec with ``m=0`` is a template the executor binds to the real batch
+    at ``step()`` (m = batch_rows / micro_batch); a bound spec additionally
+    pins the expected microbatch count. ``remat`` is the stage's recompute
+    arm ("none", "attn", "full"; "flash" only changes the byte accounting
+    — the attention kernel is ``cfg.attn_impl``'s).
+    """
+
+    def __init__(self, cfg: ModelConfig, spec: P.ScheduleSpec,
+                 micro_batch: int = 1, remat: str = "none"):
+        if spec.seq_chunks > 1:
+            raise NotImplementedError(
+                "sequence-sliced schedules (seq_chunks > 1) are not ported "
+                "yet (ROADMAP A8)")
+        self.spec = spec
+        self.cfg, self.p, self.kind = cfg, spec.p, spec.kind
+        self.v = spec.v
+        self.n_virtual = spec.n_virtual
+        assert self.n_virtual <= cfg.num_layers, \
+            (spec.p, self.v, cfg.num_layers)
+        self.b = micro_batch
+        self.remat = remat
+        self.cap = spec.resolved_cap
+        self.stage_fns = [stage_mod.make_stage_fn(cfg, self.n_virtual, vs, remat)
+                          for vs in range(self.n_virtual)]
+        self.splitter = stage_mod.StageSplitter(cfg, self.n_virtual)
+
+    def _schedule_for(self, m: int) -> P.Schedule:
+        if self.spec.bound:
+            assert m == self.spec.m, \
+                f"batch implies m={m} but spec binds m={self.spec.m}"
+        return P.compile_plan(self.spec.with_m(m))
+
+    def step(self, params, batch, trace: bool = False) -> StepResult:
+        cfg, p = self.cfg, self.p
+        nv = self.n_virtual
+        bsz = batch["tokens"].shape[0]
+        assert bsz % self.b == 0
+        m = bsz // self.b
+        seq = batch["tokens"].shape[1]
+        dev = batch["tokens"].device
+        n = Notation(
+            a=cfg.num_heads, b=self.b, h=cfg.d_model, l=cfg.num_layers,
+            s=seq, v=cfg.vocab_size, B=bsz, p=p, t=1)
+        attention = {"none": "none", "attn": "recompute", "full": "recompute",
+                     "flash": "flash"}.get(self.remat, "none")
+        policy = self.spec.policy
+        # One stash unit's bytes: the same v-chunk weighting
+        # memory_model.act_bytes_per_stage charges, so the reported
+        # peak_bytes/bytes_moved agree with the model's per-stage numbers.
+        unit_bytes = mm.sliced_unit_bytes(n, attention, self.v, 1)
+        store = ActivationStore(p, unit_bytes,
+                                retained_bytes=policy.retained_bytes(
+                                    n, attention, self.v))
+        is_recompute = policy.mechanism == "recompute"
+        swap_ops = frozenset(
+            op for op, pol in {**respol.RELEASE_OPS,
+                               **respol.RESTORE_OPS}.items() if pol.swap)
+
+        stage_params = self.splitter.split(params)
+        stage_paths, stage_leaves = zip(*(
+            zip(*T.leaves_with_paths(sp)) for sp in stage_params))
+        schedule = self._schedule_for(m)
+        bounds = schedule.bounds
+        partner = schedule.partner
+        # trace=True attaches a Recorder; without it the step takes no
+        # timings.
+        observer: Optional[Recorder] = Recorder() if trace else None
+        t_step0 = time.perf_counter()
+        clock = lambda: time.perf_counter() - t_step0  # noqa: E731
+        # At most ``depth`` real copies in flight per channel (the live
+        # memory bound), each retiring as a channel-track span.
+        xfers = AsyncTransferRuntime(self.spec.depth, observer=observer,
+                                     clock=clock)
+
+        def chan(op: str, i: int) -> Optional[tuple]:
+            pol = respol.RELEASE_OPS.get(op) or respol.RESTORE_OPS[op]
+            return channel_key(pol.mechanism, i, partner.get(i),
+                               release=op in respol.RELEASE_OPS)
+
+        micros = [
+            {k: val[j * self.b:(j + 1) * self.b] for k, val in batch.items()}
+            for j in range(m)]
+
+        # act_in/grad_in are keyed by the *virtual* stage they feed (plus
+        # the sequence slice, always 0 here).
+        act_in: Dict[Tuple[int, int, int], Any] = {}
+        grad_in: Dict[Tuple[int, int, int], Any] = {}
+        losses: Dict[Tuple[int, int], torch.Tensor] = {}
+        grads: List[List[Optional[torch.Tensor]]] = [
+            [None] * len(leaves) for leaves in stage_leaves]
+        scale = torch.tensor(1.0 / m, dtype=torch.float32, device=dev)
+
+        def forward(vs, mb, carry):
+            """Stage ``vs`` on microbatch ``mb`` from ``carry`` (() for
+            stage 0), its saved tensors boxed. Returns (output, Graph)."""
+            inputs = [t.detach().requires_grad_(True) for t in carry]
+            leaves = list(stage_leaves[vs]) + inputs
+            box = mem_offload.Box(keep=leaves + list(micros[mb].values()))
+            with torch.enable_grad(), box.hooks():
+                out = self.stage_fns[vs](stage_params[vs], tuple(inputs),
+                                         micros[mb])
+            outs = out if isinstance(out, tuple) else (out,)
+            return out, Graph(outs, leaves, box)
+
+        def wrap(body):
+            """Shared post-instruction bookkeeping: span emission through
+            the attached observer (synchronising the card so the span
+            covers device time, not the launch) and the live stash-cap
+            assertion."""
+            def handler(i, ins):
+                t0 = time.perf_counter() if observer is not None else 0.0
+                sync = body(i, ins)
+                if sync is P.BLOCKED:
+                    return P.BLOCKED
+                if observer is not None:
+                    if sync is not None and dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    observer.emit(
+                        ins.op, i, ins.mb, ins.chunk, ins.sl, ins.phase,
+                        t0 - t_step0, time.perf_counter() - t_step0,
+                        hbm=store.resident_bytes(i))
+                if self.cap is not None:
+                    # swap ops (EVICT/LOAD) also touch the partner's
+                    # store — check both ends so acceptor-side transients
+                    # can't hide behind the acceptor's next pop.
+                    for d in ((i, partner[i])
+                              if ins.op in swap_ops else (i,)):
+                        assert store.held(d) <= bounds[d], \
+                            (d, ins, store.held(d), bounds[d])
+                return None
+            return handler
+
+        def on_f(i, ins):
+            vs = ins.vs
+            # pop: the boundary activation has exactly one consumer
+            carry = () if vs == 0 else act_in.pop((vs, ins.mb, ins.sl), None)
+            if carry is None:
+                return P.BLOCKED
+            out, graph = forward(vs, ins.mb, carry)
+            # recompute residency keeps the boundary input alongside the
+            # graph: DROP strips to it, RECOMPUTE re-forwards from it
+            store.put(i, ins.mb, (graph, carry) if is_recompute else graph,
+                      ins.chunk)
+            if vs == nv - 1:
+                losses[(ins.mb, 0)] = out.detach()
+            else:
+                act_in[(vs + 1, ins.mb, 0)] = tuple(t.detach() for t in out)
+            return out
+
+        def on_b(i, ins):
+            vs = ins.vs
+            if vs == nv - 1:
+                cot = (scale,)
+            else:
+                cot = grad_in.pop((vs, ins.mb, ins.sl), None)
+                if cot is None:
+                    return P.BLOCKED
+            entry = store.pop(i, ins.mb, ins.chunk, ins.sl)
+            graph = entry[0] if is_recompute else entry
+            live = [(o, g) for o, g in zip(graph.out, cot) if o.requires_grad]
+            got = torch.autograd.grad([o for o, _ in live], graph.leaves,
+                                      grad_outputs=[g for _, g in live],
+                                      allow_unused=True)
+            k = len(stage_leaves[vs])
+            grads[vs] = [_add(a, g) for a, g in zip(grads[vs], got[:k])]
+            if vs > 0:
+                grad_in[(vs - 1, ins.mb, ins.sl)] = tuple(
+                    torch.zeros_like(t) if g is None else g
+                    for t, g in zip(graph.leaves[k:], got[k:]))
+            return got
+
+        # Every move handler follows the compiled ISSUE/WAIT contract: the
+        # ISSUE half starts the (async) copy and registers it with the
+        # transfer runtime; the WAIT half blocks on the channel up to that
+        # unit, so the dependent compute touches the data only once the
+        # copy is really complete.
+        def move_handler(op_fn):
+            def on_move(i, ins):
+                if ins.is_wait:
+                    return xfers.wait(chan(ins.op, i), ins.done_key)
+                return xfers.submit(chan(ins.op, i), ins.done_key,
+                                    lambda: op_fn(i, ins))
+            return on_move
+
+        on_evict = move_handler(lambda i, ins: store.evict(
+            i, ins.mb, partner[i], ins.chunk, ins.sl))
+        on_load = move_handler(lambda i, ins: store.load(
+            i, ins.mb, partner[i], ins.chunk, ins.sl))
+        on_offload = move_handler(lambda i, ins: store.offload(
+            i, ins.mb, ins.chunk, ins.sl, mover=mem_offload.to_host))
+        on_fetch = move_handler(lambda i, ins: store.fetch(
+            i, ins.mb, ins.chunk, ins.sl, mover=mem_offload.to_device))
+
+        def on_drop(i, ins):
+            if ins.is_wait:
+                return None
+            # free the graph and its box, keep the boundary input the
+            # re-forward starts from
+            store.drop(i, ins.mb, ins.chunk, ins.sl, strip=lambda e: e[1])
+
+        def on_recompute(i, ins):
+            if ins.is_wait:
+                return None
+            carry = store.dropped_input(i, ins.mb, ins.chunk, ins.sl)
+            out, graph = forward(ins.vs, ins.mb, carry)
+            store.recompute(i, ins.mb, (graph, carry), ins.chunk)
+            return out
+
+        # Handlers by registered policy mechanism: a plugin policy's ops
+        # are executable without edits here — the registry IS the op set.
+        mech_release = {"swap": on_evict, "host": on_offload,
+                        "recompute": on_drop}
+        mech_restore = {"swap": on_load, "host": on_fetch,
+                        "recompute": on_recompute}
+        handlers = {F: wrap(on_f), B: wrap(on_b)}
+        for op, pol in respol.RELEASE_OPS.items():
+            handlers[op] = wrap(mech_release[pol.mechanism])
+        for op, pol in respol.RESTORE_OPS.items():
+            handlers[op] = wrap(mech_restore[pol.mechanism])
+        P.run(schedule.streams, handlers, observer=observer, dep_gated=True)
+        xfers.drain()                       # no copy escapes the step
+
+        loss = sum(losses.values()) * scale
+        stage_grads = [
+            T.unflatten(paths, [torch.zeros_like(t) if g is None else g
+                                for t, g in zip(leaves, gs)])
+            for paths, leaves, gs in zip(stage_paths, stage_leaves, grads)]
+        stats = store.stats()
+        stats.transfers_inflight_peak = xfers.inflight_peak
+        return StepResult(loss=loss, grads=self.splitter.merge(stage_grads),
+                          stats=stats,
+                          events=list(observer.spans)
+                          if observer is not None else None)

@@ -11,7 +11,9 @@ Both sides compute in fp32 from the same inputs, so in bf16 each O element
 is also held to 1e-4 + 1e-2 |O| (one bf16 rounding is at most 2**-7 |O|)
 and the fp32 LSE to 1e-4, as ``chip_smoke.py`` does; a bf16 gradient
 element to 1e-2 |want| + 1e-3 max |want| beside the 2.5e-2 bound (the
-sums run over many more terms than the forward's).
+sums run over many more terms than the forward's). The fused softmax
+kernels take ``tests/test_kernels.py``'s: 1e-6 / 2e-2 for y, 1e-5 + 1e-4
+|want| for dx in fp32; the pipelined step the flash arm's grad tolerance.
 """
 import pytest
 import torch
@@ -159,3 +161,74 @@ def test_flash_bwd_rejects_wide_heads(cuda):
     lse = torch.zeros((1, 8, 2, 1), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_bwd(q, q, q, q, lse, q)
+
+
+# the fused softmax sweep of tests/test_kernels.py:94-99: shape, dtype,
+# scale, causal; y to 1e-6 fp32 / 2e-2 bf16, dx to 1e-5 + 1e-4 |want| in
+# fp32 and 2e-2 in bf16 (one bf16 rounding of an fp32 sum taken in another
+# order), rows summing to 1 within 2e-2
+FS_CASES = [
+    ((4, 64, 64), "float32", 1.0, False),
+    ((2, 4, 32, 32), "bfloat16", 0.125, True),
+    ((1, 8, 48, 48), "float32", 0.07, True),
+    ((96, 128), "float32", 2.0, False),
+    ((2, 3, 700, 700), "float32", 0.1, True),      # rows wider than 512
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,scale,causal", FS_CASES)
+def test_fused_softmax_kernels_match_plain(cuda, shape, dtype, scale, causal):
+    from repro_torch.kernels import fused_softmax as fs
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = (torch.randn(shape, generator=gen, device=cuda) * 4).to(getattr(torch, dtype))
+    dy = torch.randn(shape, generator=gen, device=cuda).to(x.dtype)
+    before = (fs.fused_softmax_fwd.launches, fs.fused_softmax_bwd.launches)
+    y = fs.fused_softmax_fwd(x, scale=scale, causal=causal)
+    dx = fs.fused_softmax_bwd(y, dy, scale=scale)
+    torch.cuda.synchronize()
+    assert (fs.fused_softmax_fwd.launches, fs.fused_softmax_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    bf16 = dtype == "bfloat16"
+    # bf16: the tests' 2e-2 and, element by element, one bf16 rounding of
+    # y (1e-4 + 1e-2|y|) and of dx (1e-2|dx| + 1e-3 mean|dx|)
+    want = ref.fused_softmax_ref(x, scale=scale, causal=causal).float()
+    torch.testing.assert_close(y.float(), want, atol=2e-2 if bf16 else 1e-6, rtol=0)
+    if bf16:
+        torch.testing.assert_close(y.float(), want, atol=1e-4, rtol=1e-2)
+    torch.testing.assert_close(y.float().sum(-1), torch.ones(shape[:-1], device=cuda),
+                               atol=2e-2, rtol=0)
+    want_dx = ref.fused_softmax_bwd_ref(y, dy, scale=scale).float()
+    torch.testing.assert_close(dx.float(), want_dx, atol=2e-2 if bf16 else 1e-5,
+                               rtol=0 if bf16 else 1e-4)
+    if bf16:
+        torch.testing.assert_close(dx.float(), want_dx, rtol=1e-2,
+                                   atol=1e-3 * float(want_dx.abs().mean()))
+
+
+@pytest.mark.gpu
+def test_pipelined_step_on_the_card_matches_the_cpu(cuda):
+    """The executor on the card (flash kernels, host_offload through pinned
+    memory) against the same step on the CPU, at the flash arm's grad
+    tolerance."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(), num_layers=4,
+                              dtype="float32", attn_impl="flash")
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 17),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    spec = ScheduleSpec("1f1b", 4, 4, residency="host_offload")
+    got = PipelineExecutor(cfg, spec).step(
+        T.tree_map(lambda t: t.to(cuda), params), {k: v.to(cuda) for k, v in batch.items()})
+    want = PipelineExecutor(cfg, spec).step(params, batch)
+    assert got.stats.offloads == got.stats.fetches > 0
+    assert abs(float(got.loss) - float(want.loss)) <= 1e-5
+    for a, b in zip(T.leaves(got.grads), T.leaves(want.grads)):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=1e-3)

@@ -12,6 +12,7 @@ import torch
 import repro.configs as jcfgs
 import repro_torch.configs as tcfgs
 from repro_torch import bridge, serve
+from repro_torch.launch import pipeline as tpipeline
 from repro_torch.launch import train as tlaunch
 from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
@@ -23,6 +24,17 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b", re.M)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny CPU ops gain nothing from intra-op threads, and when several
+    test workers share the cores, every process's BLAS threads waiting on
+    each other make a run of small GEMMs minutes long."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_port_imports_no_jax_and_no_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted(ROOT.glob("chip_*.py"))
@@ -30,6 +42,20 @@ def test_port_imports_no_jax_and_no_repro():
     assert len(files) > 10
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in IMPORT.finditer(f.read_text())]
+    assert not bad, bad
+
+
+REPRO_STRING = re.compile(r"""["']repro\.""")
+
+
+def test_port_names_no_repro_module_in_a_string():
+    """A copied module that looked a module up by name (``sys.modules``)
+    must name the port's, or it reaches into the JAX package."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted(ROOT.glob("chip_*.py"))
+    bad = [f"{f.relative_to(ROOT)}:{i}" for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if REPRO_STRING.search(line)]
     assert not bad, bad
 
 
@@ -69,6 +95,42 @@ def test_launch_train_without_cpu_flag_needs_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.main(["--arch", "llama-65b", "--reduced", "--steps", "1",
                       "--batch", "1", "--seq", "8"])
+
+
+def test_launch_pipeline_without_cpu_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpipeline.main(["--steps", "1", "--stages", "2", "--batch", "4",
+                        "--seq", "8"])
+
+
+def test_launch_pipeline_plan_auto_names_the_planner():
+    with pytest.raises(NotImplementedError, match="A7"):
+        tpipeline.main(["--plan", "auto", "--device", "cpu"])
+
+
+def test_launch_pipeline_cpu_flag_runs_every_arm():
+    """Every arm of the example, on the CPU: the same losses (the same
+    math, other memory), 1F1B's imbalance and BPipe's swaps."""
+    res = tpipeline.main(["--device", "cpu", "--steps", "2", "--stages", "4",
+                          "--batch", "4", "--seq", "8"])
+    arms = res["arms"]
+    assert sorted(arms) == sorted([
+        "gpipe", "1f1b", "bpipe", "1f1b+host_offload",
+        "1f1b+selective_recompute", "1f1b_interleaved", "bpipe_interleaved"])
+    first = arms["1f1b"]["losses"]
+    for label, arm in arms.items():
+        assert len(arm["losses"]) == 2
+        torch.testing.assert_close(torch.tensor(arm["losses"]),
+                                   torch.tensor(first), atol=1e-5, rtol=0)
+    assert arms["1f1b"]["stats"].peak_local == {0: 4, 1: 3, 2: 2, 3: 1}
+    st = arms["bpipe"]["stats"]
+    assert max(st.peak_local.values()) <= 3 and st.evictions == st.loads > 0
+    st = arms["1f1b+host_offload"]["stats"]
+    assert st.offloads == st.fetches > 0
+    st = arms["1f1b+selective_recompute"]["stats"]
+    assert st.drops == st.recomputes > 0
 
 
 def test_init_all_defaults_to_cuda():
