@@ -5,11 +5,14 @@
 
 Phases, each fatal on failure:
   1. the card's name and power limit; the kernels built from csrc/ (nvcc,
-     all sources at once) with their ptxas report;
+     all sources at once) with their ptxas report, and the count of HGMMA
+     and UTMALDG instructions in each sm90 library (``cuobjdump -sass``);
   2. every kernel against its plain PyTorch version on the card, at the
-     kernel tests' shapes and tolerances and at the main paths' shapes:
-     the flash forward, and the backward's dq and dk/dv kernels (with a
-     check that two runs give the same bits);
+     kernel tests' shapes and tolerances, at the bf16 route's own cases
+     (``SM90_SWEEP``) and at the main paths' shapes: the flash forward (two
+     runs bit-equal), and the backward's dq and dk/dv kernels (two runs
+     bit-equal); each check prints its route (``sm90`` for bf16, ``fma``
+     for fp32);
   3. the kernels timed at the main paths' shapes beside their plain
      versions (one each: the forward, the dq pass, the dk/dv pass), one
      PyTorch library call as a yardstick, and the card's bound;
@@ -82,6 +85,19 @@ BWD_SWEEP = [
     (1, 48, 8, 8, 16, "float32", 0, 20.0),
     (1, 40, 2, 2, 32, "float32", 0, 0.0),
 ]
+# the bf16 (sm90) route's own cases, b, sq, sk, nq, nkv, hd, window,
+# softcap, q_offset: tiles cut by sq and sk (200; 24 queries over 56 keys at
+# q_offset 32), GQA m 1, 2, 3, 4, 8, head_dim 8 to 128, window and softcap
+SM90_SWEEP = [
+    (2, 200, 200, 8, 8, 64, 0, 0.0, 0),
+    (2, 24, 56, 8, 4, 32, 20, 0.0, 32),
+    (1, 200, 200, 16, 4, 24, 0, 30.0, 0),
+    (2, 24, 56, 16, 2, 128, 0, 0.0, 32),
+    (1, 200, 200, 8, 1, 8, 50, 0.0, 0),
+    (1, 300, 300, 6, 2, 96, 0, 0.0, 0),
+    (1, 256, 256, 32, 4, 128, 64, 30.0, 0),
+    (1, 130, 130, 4, 4, 96, 0, 20.0, 0),
+]
 MAIN = dict(arch="llama-65b", layers=10, batch=4, prompt=2048, gen=16)
 # the fused softmax sweep of tests/test_kernels.py:94-99 (shape, dtype,
 # scale, causal) plus one fp32 case past the kernels' 512-column switch; and
@@ -108,11 +124,15 @@ def tol(dtype):
     return 2.5e-2 if dtype == "bfloat16" else 3e-5
 
 
-# The kernel and its plain version both compute in fp32 from the same
-# inputs. In bf16 they can differ by one bf16 rounding of O (at most 2**-7
-# of |O|) and by fp32 rounding of the fp32 LSE, so beside the tests' 2.5e-2
-# every bf16 O element is held to O_ATOL + O_RTOL * |O| and the LSE to
-# LSE_TOL: a wrong P V sum in a few rows cannot hide under the wide bound.
+# The plain version computes in fp32 from the bf16 inputs. The bf16 kernel
+# (sm90 route) runs its products on the tensor cores: S = Q K^T from the
+# bf16 inputs into fp32, and P V with P split into a bf16 hi + lo pair
+# (about 16 bits of P), so beside one bf16 rounding of O (at most 2**-7 of
+# |O|) and fp32 rounding of the LSE the two differ by about 2**-17 of each
+# P V term. Beside the tests' 2.5e-2 every bf16 O element is held to
+# O_ATOL + O_RTOL * |O| and the LSE to LSE_TOL: a wrong P V sum in a few
+# rows cannot hide under the wide bound, and one bf16 rounding of P (2**-9
+# of each term) would break it on rows with few keys.
 O_RTOL, O_ATOL, LSE_TOL = 1e-2, 1e-4, 1e-4
 
 
@@ -130,8 +150,9 @@ def agree(torch, out, want_out, lse, want_lse, dtype):
 
 
 # dq, dk, dv: fp32 as the JAX backward test (2e-4 / 1e-3). In bf16 the sums
-# run over up to 2048 keys or queries before one bf16 rounding, so beside
-# the tests' 2.5e-2 each element is held to G_RTOL |want| + G_ATOL max|want|.
+# run over up to 2048 keys or queries before one bf16 rounding (dq's dS
+# enters its product as a bf16 hi + lo pair), so beside the tests' 2.5e-2
+# each element is held to G_RTOL |want| + G_ATOL max|want|.
 G_ATOL32, G_RTOL32 = 2e-4, 1e-3
 G_RTOL, G_ATOL = 1e-2, 1e-3
 
@@ -261,7 +282,10 @@ def kernel_device_ms(torch, fn, names, iters=5):
 
 # kernel names -> the kinds a profile is summed by (first match wins)
 PROFILE_KINDS = [
-    ("port flash kernels", ("fwd_kernel", "dq_kernel", "dkv_kernel")),
+    ("port flash kernels", ("flash_fwd_sm90_kernel", "flash_fwd_fma_kernel",
+                            "flash_dq_sm90_kernel", "flash_dq_fma_kernel",
+                            "dkv_kernel")),
+    ("port fused softmax kernels", ("fwd_kernel", "bwd_kernel")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("elementwise, copies and casts", ("elementwise", "copy", "fill", "cat")),
     ("reductions", ("reduce", "softmax", "norm")),
@@ -889,6 +913,26 @@ def pipeline_checks(torch, dev):
         mem_offload.to_host, mem_offload.to_device = to_host, to_device
 
 
+def sass_counts(libs):
+    """HGMMA (wgmma) and UTMALDG (TMA load) instructions in each sm90
+    library, from ``cuobjdump -sass``; fails if either is 0. Returns
+    {name: {"HGMMA": n, "UTMALDG": n}}, empty without cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[sass] cuobjdump not found: no SASS counts")
+        return {}
+    out = {}
+    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90"):
+        text = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True).stdout
+        out[name] = {op: len(re.findall(rf"\b{op}\b", text)) for op in ("HGMMA", "UTMALDG")}
+        print(f"[sass] {name}: {out[name]} (cuobjdump -sass, all instances)")
+        if not all(out[name].values()):
+            fail(f"{name} has no wgmma or no TMA load in its SASS: {out[name]}")
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch is not beside this script")
@@ -914,20 +958,24 @@ def main():
           f"{torch.backends.cpu.get_cpu_capability()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
+    kernels = ["flash_attention_fwd_sm90", "flash_attention_dq_sm90",
+               "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
                "fused_softmax_fwd", "fused_softmax_bwd"]
     t0 = time.perf_counter()
-    build.build(kernels)
+    libs = build.build(kernels)
     print(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs.items():
         entry = name
         for line in log.splitlines():
-            m = re.search(r"(fwd|bwd|dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)E", line)
-            if m:  # the instance: element type and padded head_dim (or threads a row)
-                entry = (f"{m.group(1)}_kernel<{'float' if m.group(2) == 'f' else 'bf16'}, "
-                         f"{m.group(3)}>")
+            m = re.search(r"\d((?:flash_[a-z0-9]+_[a-z0-9]+|fwd|bwd|dkv)_kernel)I(.*?E)Ev",
+                          line)
+            if m:  # the instance: element type, padded head_dim (and k16 steps) or threads a row
+                args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a, n) for a, n in
+                        re.findall(r"(Li(\d+)E|f|13__nv_bfloat16)", m.group(2))]
+                entry = f"{m.group(1)}<{', '.join(args)}>"
             elif "registers" in line or "spill" in line:
                 print(f"  {entry}: {line.strip()}")
+    sass = sass_counts(libs)
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -948,9 +996,13 @@ def main():
     for dt in ("float32", "bfloat16"):
         cases.append(dict(b=2, sq=24, sk=56, nq=4, nkv=2, hd=32, dtype=dt,
                           window=20, softcap=0.0, q_offset=32, name="q_offset"))
-    cases.append(dict(b=2, sq=200, sk=200, nq=8, nkv=8, hd=64, dtype="float32",
-                      window=0, softcap=0.0, q_offset=0, name="strided",
-                      strided=True))
+    for dt in ("float32", "bfloat16"):
+        cases.append(dict(b=2, sq=200, sk=200, nq=8, nkv=8, hd=64, dtype=dt,
+                          window=0, softcap=0.0, q_offset=0, name="strided",
+                          strided=True))
+    cases += [dict(b=b, sq=sq, sk=sk, nq=nq, nkv=nkv, hd=hd, dtype="bfloat16",
+                   window=w, softcap=c, q_offset=off, name="sm90")
+              for b, sq, sk, nq, nkv, hd, w, c, off in SM90_SWEEP]
     cases.append(dict(b=4, sq=2048, sk=2048, nq=64, nkv=64, hd=128,
                       dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
                       name="llama-65b main path"))
@@ -964,21 +1016,25 @@ def main():
         kw = dict(causal=True, window=c["window"], softcap=c["softcap"],
                   q_offset=c["q_offset"], return_lse=True)
         out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+        again = fa.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
+        same = torch.equal(out, again[0]) and torch.equal(lse, again[1])
         want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
         o_err, lse_err, ok = agree(torch, out, want_out, lse, want_lse,
                                    c["dtype"])
+        ok = ok and same
         extra = (f"; O within {O_ATOL} + {O_RTOL}|O|, LSE within {LSE_TOL}"
                  if c["dtype"] == "bfloat16" else "")
         print(f"[check] flash_attention_fwd {c['name']} b{c['b']} sq{c['sq']} "
               f"sk{c['sk']} {c['nq']}/{c['nkv']}x{c['hd']} {c['dtype']} "
-              f"w{c['window']} cap{c['softcap']} off{c['q_offset']}: "
-              f"max_abs_err O {o_err:.3e} LSE {lse_err:.3e} "
-              f"(tol {tol(c['dtype'])}{extra}) {'ok' if ok else 'FAIL'}")
+              f"w{c['window']} cap{c['softcap']} off{c['q_offset']} route "
+              f"{fa.route(q.dtype)}: max_abs_err O {o_err:.3e} LSE {lse_err:.3e} "
+              f"(tol {tol(c['dtype'])}{extra}); two runs bit-equal {same} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash_attention_fwd disagrees with its plain version: {c}")
         max_err = max(max_err, o_err, lse_err)
-        del q, k, v, out, lse, want_out, want_lse
+        del q, k, v, out, lse, again, want_out, want_lse
     torch.cuda.empty_cache()
 
     # the backward's dq and dk/dv kernels against the plain backward
@@ -986,7 +1042,7 @@ def main():
                       window=w, softcap=c, q_offset=0, name="bwd sweep")
                  for b, s, nq, nkv, hd, dt, w, c in BWD_SWEEP]
     bwd_cases += [dict(c, name="fwd sweep") for c in cases if c["name"] == "sweep"]
-    bwd_cases += [c for c in cases if c["name"] in ("q_offset", "strided")]
+    bwd_cases += [c for c in cases if c["name"] in ("q_offset", "strided", "sm90")]
     bwd_cases.append(dict(b=1, sq=2048, sk=2048, nq=64, nkv=64, hd=128,
                           dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
                           name="llama-65b training shape"))
@@ -1014,7 +1070,8 @@ def main():
                  if c["dtype"] == "bfloat16" else f"{G_ATOL32} + {G_RTOL32}|want|")
         print(f"[check] flash_attention_bwd {c['name']} b{c['b']} sq{c['sq']} "
               f"sk{c['sk']} {c['nq']}/{c['nkv']}x{c['hd']} {c['dtype']} "
-              f"w{c['window']} cap{c['softcap']} off{c['q_offset']}: "
+              f"w{c['window']} cap{c['softcap']} off{c['q_offset']} route "
+              f"{fa.route(q.dtype)} (dk/dv fma): "
               f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} "
               f"dv {errs[2][0]:.3e} (within {bound}); two runs bit-equal "
               f"{same} {'ok' if ok else 'FAIL'}")
@@ -1050,7 +1107,7 @@ def main():
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     bounds = bwd_bounds(q, k, v, lse, causal=True, window=0)
     bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    split = kernel_device_ms(torch, bwd, ["dq_kernel", "dkv_kernel"])
+    split = kernel_device_ms(torch, bwd, ["flash_dq_sm90_kernel", "dkv_kernel"])
     bwd_ms = time_ms(torch, bwd, 10)
     delta = ref.flash_attention_delta(out, do, lse)
     plain_by = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do,
@@ -1061,7 +1118,7 @@ def main():
     ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     bwd_library_ms = time_ms(torch, lambda: torch.autograd.grad(
         ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
-    bwd_ms_by = {"flash_attention_dq": split["dq_kernel"],
+    bwd_ms_by = {"flash_attention_dq": split["flash_dq_sm90_kernel"],
                  "flash_attention_dkv": split["dkv_kernel"]}
     for name, ms in bwd_ms_by.items():
         print(f"[time] {name} b{b} s{s} {nh}x{hd} bf16 causal: kernel {ms:.4f} ms "
@@ -1172,7 +1229,9 @@ def main():
 
     print(json.dumps({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd_sm90.cu",
+         "fp32_source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+         "sass": sass.get("flash_attention_fwd_sm90"),
          "replaces": "src/repro/kernels/flash_attention.py:31",
          "launches": sum(arm["counts"]["flash_attention_fwd"] for arm in pipe.values()),
          "launches_by_path": by_path("flash_attention_fwd"),
@@ -1180,7 +1239,9 @@ def main():
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
     ] + [
         {"name": name, "route": "cuda",
-         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+         "source": f"src/repro_torch/kernels/csrc/{source}.cu",
+         **({"fp32_source": f"src/repro_torch/kernels/csrc/{name}.cu",
+             "sass": sass.get(source)} if source != name else {}),
          "replaces": f"src/repro/kernels/flash_attention.py:{line}",
          "launches": sum(arm["counts"][name] for arm in pipe.values()),
          "launches_by_path": by_path(name),
@@ -1188,8 +1249,9 @@ def main():
          "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": bwd_library_ms,
          "library_computes": "dq, dk and dv together"}
-        for name, line in (("flash_attention_dq", 220),
-                           ("flash_attention_dkv", 259))
+        for name, source, line in (
+            ("flash_attention_dq", "flash_attention_dq_sm90", 220),
+            ("flash_attention_dkv", "flash_attention_dkv", 259))
     ] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

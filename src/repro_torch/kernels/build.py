@@ -2,9 +2,10 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C interface and is compiled
 on first use into ``_build/<name>-<hash>.so`` (a directory git ignores) for
-Hopper (``sm_90a``). The hash covers the source, ``NVCC_FLAGS`` and the
-nvcc version: a library built from the same three is reused, a change to
-any of them builds anew. Nothing here runs at import.
+Hopper (``sm_90a``). The hash covers the source and every header it
+includes with quotes (``csrc/hopper.cuh``), ``NVCC_FLAGS`` and the nvcc
+version: a library built from the same is reused, a change to any of them
+builds anew. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -12,10 +13,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -42,9 +44,28 @@ def _nvcc_version() -> str:
                           text=True, check=True).stdout
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _closure(src: Path) -> List[Path]:
+    """``src`` and the files it includes with quotes, recursively, each once."""
+    seen: List[Path] = []
+    todo = [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for path in _closure(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     h.update(_nvcc_version().encode())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

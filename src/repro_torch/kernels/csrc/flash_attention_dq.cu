@@ -1,24 +1,26 @@
-// Flash-attention backward, pass 1: dQ, for Hopper, plain FMA.
+// Flash-attention backward, pass 1: dQ, for Hopper, plain FMA: the fp32
+// route.
 //
 // Replaces the Pallas TPU kernel `_dq_kernel` (pass 1 of `flash_attention_bwd`)
-// in src/repro/kernels/flash_attention.py. It computes the same function in
-// the same layout:
-//   q/dout (b, sq, nq, hd), k/v (b, sk, nkv, hd), fp32 or bf16, any strides
-//   with a unit last stride; LSE (forward's) and D = rowsum(dO * O), both
+// in src/repro/kernels/flash_attention.py, for fp32 inputs; bf16 inputs take
+// csrc/flash_attention_dq_sm90.cu (wgmma, TMA). The fp32 route stays on the
+// CUDA cores because wgmma would run fp32 as TF32 (about three decimal
+// digits), and the fp32 checks hold exact fp32 products: grads within
+// 2e-4 + 1e-3|want| of the plain version, 1e-5 of the CPU in the pipelined
+// arms. It computes the same function in the same layout:
+//   q/dout (b, sq, nq, hd), k/v (b, sk, nkv, hd) fp32, any strides with a
+//   unit last stride; LSE (forward's) and D = rowsum(dO * O), both
 //   (b, sq, nkv, m) contiguous fp32, m = nq / nkv; dQ (b, sq, nq, hd)
-//   contiguous in q's dtype.
+//   contiguous fp32.
 //   P = exp(S - LSE) over the masked scores (causal, sliding window, kv
 //   padding, `q_offset` shift of the query positions, gemma2 softcap),
 //   dS = P (dO V^T - D) dcap scale with dcap = 1 - tanh^2 under a softcap,
 //   dQ = sum over kv tiles of dS K. All products run in fp32.
 //
-// What bounds it on an H100: at the training shape (b 1, s 2048, 64 heads of
-// 128, causal, bf16) it does three products over the causal half of the
-// scores, about 1.0e11 FLOP, against about 0.17 GB of inputs and outputs,
-// so the card's bound is its compute (about 0.1 ms at the bf16 tensor-core
-// rate). This kernel does its products as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it cannot come closer than about 1.5 ms; wgmma on
-// bf16 tiles with TMA loads is the later step.
+// What bounds it on an H100: its products run as fp32 FMAs on the CUDA
+// cores (67 TFLOP/s peak); the training shape's three products (b 1,
+// s 2048, 64 heads of 128, causal: about 1.0e11 FLOP) would take about
+// 1.5 ms there. The port's fp32 paths are the small checking sizes.
 //
 // Design. One thread block per (tile of 64 rows, kv head, batch), where a
 // row is one (query, GQA head) pair, as in the forward kernel: the block
@@ -34,7 +36,6 @@
 // sq and keys past sk are masked loads that read zeros; a key past sk gets
 // P = 0 and adds nothing to dQ.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -61,11 +62,6 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int HDP>
 __host__ __device__ constexpr int v_region() {  // floats of the V buffer, then dS
   return BK * (HDP + 1) > ROWS * (BK + 1) ? BK * (HDP + 1) : ROWS * (BK + 1);
@@ -76,8 +72,8 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (3 * ROWS * (HDP + 1) + v_region<HDP>());
 }
 
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
+template <int HDP>
+__global__ void __launch_bounds__(THREADS) flash_dq_fma_kernel(Params p) {
   constexpr int RS = HDP + 1;  // row stride of Q, dO, K, V
   constexpr int PS = BK + 1;   // row stride of dS
   constexpr int OC = HDP / 8;  // dQ columns per thread
@@ -93,18 +89,18 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
   const int q0 = blockIdx.x * p.bq;
   const int nq_tile = min(p.bq, p.sq - q0);
   const int nrows = nq_tile * m;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
 
   for (int idx = tid; idx < ROWS * HDP; idx += THREADS) {
     const int r = idx / HDP, d = idx % HDP;
     float qval = 0.f, dval = 0.f;
     if (r < nrows && d < p.hd) {
       const int qi = q0 + r / m, h = g * m + r % m;
-      qval = to_f(q[bb * p.qsb + qi * p.qss + h * p.qsh + d]);
-      dval = to_f(dout[bb * p.dsb + qi * p.dss + h * p.dsh + d]);
+      qval = q[bb * p.qsb + qi * p.qss + h * p.qsh + d];
+      dval = dout[bb * p.dsb + qi * p.dss + h * p.dsh + d];
     }
     Qs[r * RS + d] = qval;
     dOs[r * RS + d] = dval;
@@ -140,8 +136,8 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
       const int j = idx / HDP, d = idx % HDP, kv = k0 + j;
       float kval = 0.f, vval = 0.f;
       if (kv < p.sk && d < p.hd) {
-        kval = to_f(k[bb * p.ksb + kv * p.kss + g * p.ksh + d]);
-        vval = to_f(v[bb * p.vsb + kv * p.vss + g * p.vsh + d]);
+        kval = k[bb * p.ksb + kv * p.kss + g * p.ksh + d];
+        vval = v[bb * p.vsb + kv * p.vss + g * p.vsh + d];
       }
       Ks[j * RS + d] = kval;
       Vs[j * RS + d] = vval;
@@ -218,48 +214,47 @@ __global__ void __launch_bounds__(THREADS) dq_kernel(Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq);
+  float* dq = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 32 * i;
     if (r >= nrows) continue;
     const int qi = q0 + r / m, mi = r % m;
-    T* row = dq + ((static_cast<long long>(bb) * p.sq + qi) * p.nq + g * m + mi) * p.hd;
+    float* row = dq + ((static_cast<long long>(bb) * p.sq + qi) * p.nq + g * m + mi) * p.hd;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
       const int d = tx + 8 * c;
-      if (d < p.hd) store(row + d, acc[i][c]);
+      if (d < p.hd) row[d] = acc[i][c];
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dq_fma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + p.bq - 1) / p.bq, p.nkv, p.b);
-  dq_kernel<T, HDP><<<grid, THREADS, smem, stream>>>(p);
+  flash_dq_fma_kernel<HDP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<T, 32>(p, stream);
-  if (p.hd <= 64) return launch<T, 64>(p, stream);
-  if (p.hd <= 96) return launch<T, 96>(p, stream);
-  return launch<T, 128>(p, stream);
+  if (p.hd <= 32) return launch<32>(p, stream);
+  if (p.hd <= 64) return launch<64>(p, stream);
+  if (p.hd <= 96) return launch<96>(p, stream);
+  return launch<128>(p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns a cudaError_t; 0 means launched.
+// fp32 only. Returns a cudaError_t; 0 means launched.
 extern "C" int flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq,
-    int dtype, int b, int sq, int sk, int nq, int nkv, int hd,
+    int b, int sq, int sk, int nq, int nkv, int hd,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -273,7 +268,5 @@ extern "C" int flash_attention_dq(
            ROWS / (nq / nkv), qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
            dsb, dss, dsh, causal, window, q_offset, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(p, st)
-                               : dispatch<float>(p, st);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(p, st));
 }

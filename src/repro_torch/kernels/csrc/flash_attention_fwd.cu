@@ -1,22 +1,25 @@
-// Flash-attention forward (FA-2 online softmax) for Hopper, plain FMA.
+// Flash-attention forward (FA-2 online softmax) for Hopper, plain FMA: the
+// fp32 route.
 //
 // Replaces the Pallas TPU kernel `_kernel` reached through
-// `flash_attention_fwd` in src/repro/kernels/flash_attention.py. It computes
-// the same function in the same layout:
-//   q (b, sq, nq, hd), k/v (b, sk, nkv, hd), fp32 or bf16, any strides with a
-//   unit last stride; O (b, sq, nq, hd) contiguous in the input dtype and
-//   LSE (b, sq, nkv, m) contiguous fp32, m = nq / nkv.
+// `flash_attention_fwd` in src/repro/kernels/flash_attention.py, for fp32
+// inputs; bf16 inputs take csrc/flash_attention_fwd_sm90.cu (wgmma, TMA).
+// The fp32 route stays on the CUDA cores because wgmma would run fp32 as
+// TF32 (about three decimal digits), and the fp32 checks hold exact fp32
+// products: 3e-5 of the plain version on the card, 1e-5 of the CPU in the
+// pipelined arms. It computes the same function in the same layout:
+//   q (b, sq, nq, hd), k/v (b, sk, nkv, hd) fp32, any strides with a unit
+//   last stride; O (b, sq, nq, hd) and LSE (b, sq, nkv, m) contiguous fp32,
+//   m = nq / nkv.
 //   Masks: causal, sliding window, kv padding, `q_offset` shift of the query
 //   positions; gemma2 logit softcap; denom = max(l, 1e-30).
-//   Both dots run in fp32, as the reference does, so fp32 inputs agree to
+//   Both dots run in fp32, as the reference does, so the outputs agree to
 //   about 1e-6.
 //
-// What bounds it on an H100: at the serving shape (b 4, s 2048, 64 heads of
-// 128, causal, bf16) the work is 2.75e11 FLOP against 537 MB of q/k/v/o, so
-// the card's bound is its compute (0.28 ms at the bf16 tensor-core rate).
-// This kernel does its products as fp32 FMAs on the CUDA cores, whose peak
-// is 67 TFLOP/s, so it cannot come closer than about 4 ms; wgmma on bf16
-// tiles with TMA loads is the later step that closes the gap.
+// What bounds it on an H100: its products run as fp32 FMAs on the CUDA
+// cores, whose peak is 67 TFLOP/s; at the serving shape's work (b 4,
+// s 2048, 64 heads of 128, causal: 2.75e11 FLOP) that is about 4 ms. The
+// port's fp32 paths are the small checking sizes, where it is not the cost.
 //
 // Design. One thread block per (tile of 64 rows, kv head, batch), where a
 // row is one (query, GQA head) pair: the m query heads that share a kv head
@@ -31,7 +34,6 @@
 // Ragged edges (sq, sk not multiples of the tile, head_dim below its
 // instantiated width) are masked loads that read zeros.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -56,11 +58,6 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int HDP>
 __host__ __device__ constexpr int k_region() {  // floats of the K buffer, then P
   return BK * (HDP + 1) > ROWS * (BK + 1) ? BK * (HDP + 1) : ROWS * (BK + 1);
@@ -71,8 +68,8 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (ROWS * (HDP + 1) + k_region<HDP>() + BK * HDP);
 }
 
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
+template <int HDP>
+__global__ void __launch_bounds__(THREADS) flash_fwd_fma_kernel(Params p) {
   constexpr int QS = HDP + 1;
   constexpr int KS = HDP + 1;
   constexpr int PS = BK + 1;
@@ -88,16 +85,16 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   const int q0 = blockIdx.x * p.bq;
   const int nq_tile = min(p.bq, p.sq - q0);
   const int nrows = nq_tile * m;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
 
   for (int idx = tid; idx < ROWS * HDP; idx += THREADS) {
     const int r = idx / HDP, d = idx % HDP;
     float val = 0.f;
     if (r < nrows && d < p.hd) {
       const int qi = q0 + r / m, h = g * m + r % m;
-      val = to_f(q[bb * p.qsb + qi * p.qss + h * p.qsh + d]);
+      val = q[bb * p.qsb + qi * p.qss + h * p.qsh + d];
     }
     Qs[r * QS + d] = val;
   }
@@ -125,8 +122,8 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
       const int j = idx / HDP, d = idx % HDP, kv = k0 + j;
       float kval = 0.f, vval = 0.f;
       if (kv < p.sk && d < p.hd) {
-        kval = to_f(k[bb * p.ksb + kv * p.kss + g * p.ksh + d]);
-        vval = to_f(v[bb * p.vsb + kv * p.vss + g * p.vsh + d]);
+        kval = k[bb * p.ksb + kv * p.kss + g * p.ksh + d];
+        vval = v[bb * p.vsb + kv * p.vss + g * p.vsh + d];
       }
       Ks[j * KS + d] = kval;
       Vs[j * HDP + d] = vval;
@@ -208,18 +205,18 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
     }
   }
 
-  T* o = static_cast<T*>(p.o);
+  float* o = static_cast<float*>(p.o);
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = ty + 16 * i;
     if (r >= nrows) continue;
     const int qi = q0 + r / m, mi = r % m;
     const float denom = fmaxf(l_i[i], 1e-30f);
-    T* orow = o + ((static_cast<long long>(bb) * p.sq + qi) * p.nq + g * m + mi) * p.hd;
+    float* orow = o + ((static_cast<long long>(bb) * p.sq + qi) * p.nq + g * m + mi) * p.hd;
 #pragma unroll
     for (int c = 0; c < OC; ++c) {
       const int d = tx + 8 * c;
-      if (d < p.hd) store(orow + d, acc[i][c] / denom);
+      if (d < p.hd) orow[d] = acc[i][c] / denom;
     }
     if (tx == 0)
       p.lse[((static_cast<long long>(bb) * p.sq + qi) * p.nkv + g) * m + mi] =
@@ -227,32 +224,31 @@ __global__ void __launch_bounds__(THREADS) fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      fwd_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_fma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + p.bq - 1) / p.bq, p.nkv, p.b);
-  fwd_kernel<T, HDP><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_fma_kernel<HDP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<T, 32>(p, stream);
-  if (p.hd <= 64) return launch<T, 64>(p, stream);
-  if (p.hd <= 96) return launch<T, 96>(p, stream);
-  return launch<T, 128>(p, stream);
+  if (p.hd <= 32) return launch<32>(p, stream);
+  if (p.hd <= 64) return launch<64>(p, stream);
+  if (p.hd <= 96) return launch<96>(p, stream);
+  return launch<128>(p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns a cudaError_t; 0 means launched.
+// fp32 only. Returns a cudaError_t; 0 means launched.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
-    int dtype, int b, int sq, int sk, int nq, int nkv, int hd,
+    int b, int sq, int sk, int nq, int nkv, int hd,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -265,7 +261,5 @@ extern "C" int flash_attention_fwd(
            ROWS / (nq / nkv), qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
            causal, window, q_offset, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(p, st)
-                               : dispatch<float>(p, st);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(p, st));
 }

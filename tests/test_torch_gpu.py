@@ -7,11 +7,13 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
 
 Tolerances are the JAX kernel tests' own: 3e-5 in fp32, 2.5e-2 in bf16
 for the forward, 2e-4 / 1e-3 for the backward's dq, dk and dv in fp32.
-Both sides compute in fp32 from the same inputs, so in bf16 each O element
-is also held to 1e-4 + 1e-2 |O| (one bf16 rounding is at most 2**-7 |O|)
-and the fp32 LSE to 1e-4, as ``chip_smoke.py`` does; a bf16 gradient
-element to 1e-2 |want| + 1e-3 max |want| beside the 2.5e-2 bound (the
-sums run over many more terms than the forward's). The fused softmax
+The plain version computes in fp32 from the same inputs; bf16 goes to the
+sm90 kernels (tensor cores, P and dS as bf16 hi + lo pairs), fp32 to the
+FMA kernels. In bf16 each O element is also held to 1e-4 + 1e-2 |O| (one
+bf16 rounding is at most 2**-7 |O|) and the fp32 LSE to 1e-4, as
+``chip_smoke.py`` does; a bf16 gradient element to 1e-2 |want| + 1e-3
+max |want| beside the 2.5e-2 bound (the sums run over many more terms
+than the forward's). The fused softmax
 kernels take ``tests/test_kernels.py``'s: 1e-6 / 2e-2 for y, 1e-5 + 1e-4
 |want| for dx in fp32; the pipelined step the flash arm's grad tolerance.
 """
@@ -167,6 +169,75 @@ def test_flash_bwd_rejects_wide_heads(cuda):
 # scale, causal; y to 1e-6 fp32 / 2e-2 bf16, dx to 1e-5 + 1e-4 |want| in
 # fp32 and 2e-2 in bf16 (one bf16 rounding of an fp32 sum taken in another
 # order), rows summing to 1 within 2e-2
+# The bf16 (sm90) route's own cases, as chip_smoke.py's SM90_SWEEP: tiles
+# cut by sq and sk (200; 24 queries over 56 keys at q_offset 32), GQA m 1,
+# 2, 3, 4, 8, head_dim 8 to 128, window and softcap.
+# b, sq, sk, nq, nkv, hd, window, softcap, q_offset
+SM90_CASES = [
+    (2, 200, 200, 8, 8, 64, 0, 0.0, 0),
+    (2, 24, 56, 8, 4, 32, 20, 0.0, 32),
+    (1, 200, 200, 16, 4, 24, 0, 30.0, 0),
+    (2, 24, 56, 16, 2, 128, 0, 0.0, 32),
+    (1, 200, 200, 8, 1, 8, 50, 0.0, 0),
+    (1, 300, 300, 6, 2, 96, 0, 0.0, 0),
+    (1, 256, 256, 32, 4, 128, 64, 30.0, 0),
+    (1, 130, 130, 4, 4, 96, 0, 20.0, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,hd,window,softcap,q_offset", SM90_CASES)
+def test_sm90_forward_matches_plain_and_repeats(cuda, b, sq, sk, nq, nkv, hd,
+                                                window, softcap, q_offset):
+    q, k, v, _ = _bwd_inputs(cuda, b, sq, sk, nq, nkv, hd, "bfloat16", 4)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset,
+              return_lse=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+    again = fa.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=1e-4, rtol=1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,hd,window,softcap,q_offset", SM90_CASES)
+def test_sm90_dq_matches_plain_and_repeats(cuda, b, sq, sk, nq, nkv, hd, window,
+                                           softcap, q_offset):
+    q, k, v, do = _bwd_inputs(cuda, b, sq, sk, nq, nkv, hd, "bfloat16", 5)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for t, w in zip(got, want):
+        _assert_grad_close(t, w, "bfloat16")
+
+
+@pytest.mark.gpu
+def test_sm90_route_raises_before_launch_on_misaligned_strides(cuda):
+    """TMA needs strides that are multiples of 16 bytes: a bf16 view with a
+    68-element (136-byte) head stride is refused before any launch, while
+    the FMA route takes an fp32 view with a 280-byte one."""
+    qb = torch.randn((1, 16, 4, 68), device=cuda).to(torch.bfloat16)[..., :64]
+    kb = torch.randn((1, 16, 4, 64), device=cuda).to(torch.bfloat16)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.dq_launches)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_fwd(qb, kb, kb)
+    out, lse = fa.flash_attention_fwd(qb.contiguous(), kb, kb, return_lse=True)
+    with pytest.raises(ValueError, match="strides"):
+        fa.flash_attention_bwd(qb, kb, kb, out, lse, out)
+    assert (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.dq_launches) \
+        == (before[0] + 1, before[1])
+    q = torch.randn((1, 16, 4, 70), device=cuda)[..., :64]
+    k = torch.randn((1, 16, 4, 64), device=cuda)
+    torch.testing.assert_close(fa.flash_attention_fwd(q, k, k),
+                               ref.flash_attention_ref(q, k, k), atol=3e-5, rtol=0)
+
+
 FS_CASES = [
     ((4, 64, 64), "float32", 1.0, False),
     ((2, 4, 32, 32), "bfloat16", 0.125, True),
