@@ -12,10 +12,11 @@ Phases, each fatal on failure:
      (``SM90_SWEEP``) and at the main paths' shapes: the flash forward (two
      runs bit-equal), and the backward's dq and dk/dv kernels (two runs
      bit-equal); each check prints its route (``sm90`` for bf16, ``fma``
-     for fp32);
+     for fp32) and the C entry points it took;
   3. the kernels timed at the main paths' shapes beside their plain
      versions (one each: the forward, the dq pass, the dk/dv pass), one
-     PyTorch library call as a yardstick, and the card's bound;
+     PyTorch library call as a yardstick, and the card's bound; the whole
+     backward (D, dq and dk/dv) beside SDPA's;
   4. the serving path: ``repro_torch.serve`` on llama-65b at full width, 10
      layers (one stage of the paper's 8-way split of 80), batch 4, prompt
      2048, 16 generated tokens, flash attention, bf16 compute; with the
@@ -34,9 +35,13 @@ Phases, each fatal on failure:
      recompute, and one train step on the card equals the same step on the
      CPU;
   8. the fused scale-mask-softmax kernels (forward and backward) against
-     their plain versions at the kernel tests' shapes and tolerances and at
-     the paper's GPT-3 score shape (b 2 x 104 heads x 2048 x 2048, bf16,
-     causal, scale 1/sqrt(96)); there ``ops.fused_softmax`` forward and
+     their plain versions at the kernel tests' shapes and tolerances, at
+     row lengths that reach every instance of the forward (``FS_ROWS``: a
+     warp a row in registers up to 4096 columns, 16-byte or scalar
+     accesses, the online block kernel past that; two forward runs
+     bit-equal) and at the paper's GPT-3 score shape (b 2 x 104 heads x
+     2048 x 2048, bf16, causal, scale 1/sqrt(96)); there
+     ``ops.fused_softmax`` forward and
      backward once (the op's path, counted), then both kernels timed beside
      their plain versions, the unfused chain (time and CUDA kernel count)
      and the bound;
@@ -109,6 +114,14 @@ FS_SWEEP = [
     ((96, 128), "float32", 2.0, False),
     ((2, 3, 700, 700), "float32", 0.1, True),   # rows wider than 512: a block a row
 ]
+# row lengths that reach each instance of the forward: unaligned for
+# 16-byte accesses (1, 7, 513), aligned (200, 512, 2048, 4096), and past
+# the widest row a warp keeps in registers (8192: the online block kernel);
+# causal scores are square, the others a few rows
+FS_ROWS = [((((2, sk, sk) if sk <= 513 else (sk, sk)) if causal else (2, 33, sk)),
+            dtype, 0.3, causal)
+           for sk in (1, 7, 200, 512, 513, 2048, 4096, 8192)
+           for causal in (False, True) for dtype in ("float32", "bfloat16")]
 FS_MAIN = ((2, 104, 2048, 2048), "bfloat16", 1.0 / math.sqrt(96), True)
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (NVIDIA data sheet)
 PIPE = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048, steps=3)
@@ -284,8 +297,10 @@ def kernel_device_ms(torch, fn, names, iters=5):
 PROFILE_KINDS = [
     ("port flash kernels", ("flash_fwd_sm90_kernel", "flash_fwd_fma_kernel",
                             "flash_dq_sm90_kernel", "flash_dq_fma_kernel",
-                            "dkv_kernel")),
-    ("port fused softmax kernels", ("fwd_kernel", "bwd_kernel")),
+                            "flash_dkv_sm90_kernel", "flash_dkv_fma_kernel")),
+    ("port fused softmax kernels", ("fused_softmax_fwd_warp_kernel",
+                                    "fused_softmax_fwd_online_kernel",
+                                    "fused_softmax_bwd_kernel")),
     ("GEMMs", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
     ("elementwise, copies and casts", ("elementwise", "copy", "fill", "cat")),
     ("reductions", ("reduce", "softmax", "norm")),
@@ -553,20 +568,23 @@ def fused_softmax_phase(torch, dev, gen, smi):
         return x, torch.randn(shape, generator=gen, device=dev).to(x.dtype)
 
     err = {"fused_softmax_fwd": 0.0, "fused_softmax_bwd": 0.0}
-    for shape, dtype, scale, causal in FS_SWEEP + [FS_MAIN]:
+    for shape, dtype, scale, causal in FS_SWEEP + FS_ROWS + [FS_MAIN]:
         x, dy = inputs(shape, dtype)
         y = fs.fused_softmax_fwd(x, scale=scale, causal=causal)
+        same = torch.equal(y, fs.fused_softmax_fwd(x, scale=scale, causal=causal))
         dx = fs.fused_softmax_bwd(y, dy, scale=scale)
         torch.cuda.synchronize()
         want = ref.fused_softmax_ref(x, scale=scale, causal=causal)
         want_dx = ref.fused_softmax_bwd_ref(y, dy, scale=scale)
         y_err, row_err, dx_err, ok = fs_agree(torch, y, want, dx, want_dx, dtype)
+        ok = ok and same
         print(f"[check] fused_softmax {tuple(shape)} {dtype} scale {scale:.4g} "
               f"causal {causal}: max_abs_err y {y_err:.3e} (rows sum to 1 within "
-              f"{row_err:.3e}) dx {dx_err:.3e} {'ok' if ok else 'FAIL'}")
+              f"{row_err:.3e}) dx {dx_err:.3e}; two forward runs bit-equal {same} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"a fused softmax kernel disagrees with its plain version at "
-                 f"{shape} {dtype}")
+                 f"{shape} {dtype} causal {causal}, or two runs differ")
         err["fused_softmax_fwd"] = max(err["fused_softmax_fwd"], y_err)
         err["fused_softmax_bwd"] = max(err["fused_softmax_bwd"], dx_err)
         del x, dy, y, dx, want, want_dx
@@ -923,7 +941,8 @@ def sass_counts(libs):
         print("[sass] cuobjdump not found: no SASS counts")
         return {}
     out = {}
-    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90"):
+    for name in ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
+                 "flash_attention_dkv_sm90"):
         text = subprocess.run([tool, "-sass", str(libs[name])], capture_output=True,
                               text=True, check=True).stdout
         out[name] = {op: len(re.findall(rf"\b{op}\b", text)) for op in ("HGMMA", "UTMALDG")}
@@ -959,17 +978,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = ["flash_attention_fwd_sm90", "flash_attention_dq_sm90",
-               "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
-               "fused_softmax_fwd", "fused_softmax_bwd"]
+               "flash_attention_dkv_sm90", "flash_attention_fwd", "flash_attention_dq",
+               "flash_attention_dkv", "fused_softmax_fwd", "fused_softmax_bwd"]
     t0 = time.perf_counter()
     libs = build.build(kernels)
     print(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
     for name, log in build.build_logs.items():
         entry = name
         for line in log.splitlines():
-            m = re.search(r"\d((?:flash_[a-z0-9]+_[a-z0-9]+|fwd|bwd|dkv)_kernel)I(.*?E)Ev",
-                          line)
-            if m:  # the instance: element type, padded head_dim (and k16 steps) or threads a row
+            m = re.search(r"\d((?:flash|fused_softmax)_[a-z0-9_]+?_kernel)I(.*?)Ev", line)
+            if m:  # the instance: its template arguments
                 args = [{"f": "float", "13__nv_bfloat16": "bf16"}.get(a, n) for a, n in
                         re.findall(r"(Li(\d+)E|f|13__nv_bfloat16)", m.group(2))]
                 entry = f"{m.group(1)}<{', '.join(args)}>"
@@ -1068,10 +1086,12 @@ def main():
         ok = same and all(e[1] for e in errs)
         bound = (f"{G_RTOL}|want| + {G_ATOL} max|want| and 2.5e-2"
                  if c["dtype"] == "bfloat16" else f"{G_ATOL32} + {G_RTOL32}|want|")
+        kind = fa.route(q.dtype)
+        entries = ", ".join(fa._ENTRIES[k, kind] for k in ("dq", "dkv"))
         print(f"[check] flash_attention_bwd {c['name']} b{c['b']} sq{c['sq']} "
               f"sk{c['sk']} {c['nq']}/{c['nkv']}x{c['hd']} {c['dtype']} "
               f"w{c['window']} cap{c['softcap']} off{c['q_offset']} route "
-              f"{fa.route(q.dtype)} (dk/dv fma): "
+              f"{kind} ({entries}): "
               f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} "
               f"dv {errs[2][0]:.3e} (within {bound}); two runs bit-equal "
               f"{same} {'ok' if ok else 'FAIL'}")
@@ -1107,7 +1127,7 @@ def main():
     out, lse = fa.flash_attention_fwd(q, k, v, causal=True, return_lse=True)
     bounds = bwd_bounds(q, k, v, lse, causal=True, window=0)
     bwd = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    split = kernel_device_ms(torch, bwd, ["flash_dq_sm90_kernel", "dkv_kernel"])
+    split = kernel_device_ms(torch, bwd, ["flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"])
     bwd_ms = time_ms(torch, bwd, 10)
     delta = ref.flash_attention_delta(out, do, lse)
     plain_by = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do,
@@ -1119,7 +1139,7 @@ def main():
     bwd_library_ms = time_ms(torch, lambda: torch.autograd.grad(
         ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
     bwd_ms_by = {"flash_attention_dq": split["flash_dq_sm90_kernel"],
-                 "flash_attention_dkv": split["dkv_kernel"]}
+                 "flash_attention_dkv": split["flash_dkv_sm90_kernel"]}
     for name, ms in bwd_ms_by.items():
         print(f"[time] {name} b{b} s{s} {nh}x{hd} bf16 causal: kernel {ms:.4f} ms "
               f"(profiler device time per launch), plain {plain_by[name]:.4f} ms, "
@@ -1251,7 +1271,7 @@ def main():
          "library_computes": "dq, dk and dv together"}
         for name, source, line in (
             ("flash_attention_dq", "flash_attention_dq_sm90", 220),
-            ("flash_attention_dkv", "flash_attention_dkv", 259))
+            ("flash_attention_dkv", "flash_attention_dkv_sm90", 259))
     ] + [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{name}.cu",

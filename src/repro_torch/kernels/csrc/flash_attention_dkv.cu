@@ -1,12 +1,16 @@
-// Flash-attention backward, pass 2: dK and dV, for Hopper, plain FMA.
+// Flash-attention backward, pass 2: dK and dV, for Hopper, plain FMA: the
+// fp32 route.
 //
 // Replaces the Pallas TPU kernel `_dkv_kernel` (pass 2 of `flash_attention_bwd`)
-// in src/repro/kernels/flash_attention.py. It computes the same function in
-// the same layout:
-//   q/dout (b, sq, nq, hd), k/v (b, sk, nkv, hd), fp32 or bf16, any strides
-//   with a unit last stride; LSE (forward's) and D = rowsum(dO * O), both
+// in src/repro/kernels/flash_attention.py, for fp32 inputs; bf16 inputs take
+// csrc/flash_attention_dkv_sm90.cu (wgmma, TMA). The fp32 route stays on the
+// CUDA cores because wgmma would run fp32 as TF32 (about three decimal
+// digits), and the fp32 checks hold exact fp32 products. It computes the
+// same function in the same layout:
+//   q/dout (b, sq, nq, hd), k/v (b, sk, nkv, hd) fp32, any strides with a
+//   unit last stride; LSE (forward's) and D = rowsum(dO * O), both
 //   (b, sq, nkv, m) contiguous fp32, m = nq / nkv; dK and dV (b, sk, nkv, hd)
-//   contiguous in k's and v's dtype.
+//   contiguous fp32.
 //   P = exp(S - LSE) over the masked scores (causal, sliding window, kv
 //   padding, `q_offset` shift of the query positions, gemma2 softcap),
 //   dV = sum over query rows of P^T dO, dS = P (dO V^T - D) dcap scale with
@@ -14,13 +18,10 @@
 //   the rows of a kv head cover its m query heads, so both sum over them.
 //   All products run in fp32.
 //
-// What bounds it on an H100: at the training shape (b 1, s 2048, 64 heads of
-// 128, causal, bf16) it does four products over the causal half of the
-// scores, about 1.4e11 FLOP, against about 0.17 GB of inputs and outputs,
-// so the card's bound is its compute (about 0.14 ms at the bf16 tensor-core
-// rate). This kernel does its products as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so it cannot come closer than about 2 ms; wgmma on bf16
-// tiles with TMA loads is the later step.
+// What bounds it on an H100: its products run as fp32 FMAs on the CUDA
+// cores (67 TFLOP/s peak); the training shape's four products (b 1,
+// s 2048, 64 heads of 128, causal: about 1.4e11 FLOP) would take about
+// 2 ms there. The port's fp32 paths are the small checking sizes.
 //
 // Design. One thread block per (tile of 64 keys, kv head, batch): the block
 // owns its dK and dV rows and loops over the query tiles itself, so no other
@@ -29,7 +30,7 @@
 // of this kv head, as in the forward kernel. Whole query tiles that the
 // causal or window mask empties are skipped through the loop bounds, as
 // `_relevant` does on the TPU. K and V of the block are staged once in shared
-// memory as fp32; each query tile stages Q, dO, LSE and D (rows padded by one
+// memory; each query tile stages Q, dO, LSE and D (rows padded by one
 // word so column reads hit distinct banks) and writes P^T and dS^T to two
 // buffers of their own. 256 threads: thread (ty, tx) owns keys ty + 32i
 // (i < 2), score columns (query rows) tx + 8j and dK/dV columns tx + 8c, so
@@ -37,7 +38,6 @@
 // registers. Rows past sq read zeros and get P = 0, so they add nothing to
 // dK and dV; keys past sk are never written.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -65,19 +65,14 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 template <int HDP>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * BK * (HDP + 1) + 2 * ROWS * (HDP + 1)
                           + 2 * BK * (ROWS + 1) + 2 * ROWS);
 }
 
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
+template <int HDP>
+__global__ void __launch_bounds__(THREADS) flash_dkv_fma_kernel(Params p) {
   constexpr int RS = HDP + 1;   // row stride of K, V, Q, dO
   constexpr int PS = ROWS + 1;  // row stride of P^T and dS^T
   constexpr int OC = HDP / 8;   // dK/dV columns per thread
@@ -95,17 +90,17 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
   const int g = blockIdx.y, bb = blockIdx.z;
   const int m = p.m, bq = p.bq;
   const int k0 = blockIdx.x * BK;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* dout = static_cast<const T*>(p.dout);
+  const float* q = static_cast<const float*>(p.q);
+  const float* k = static_cast<const float*>(p.k);
+  const float* v = static_cast<const float*>(p.v);
+  const float* dout = static_cast<const float*>(p.dout);
 
   for (int idx = tid; idx < BK * HDP; idx += THREADS) {
     const int j = idx / HDP, d = idx % HDP, kv = k0 + j;
     float kval = 0.f, vval = 0.f;
     if (kv < p.sk && d < p.hd) {
-      kval = to_f(k[bb * p.ksb + kv * p.kss + g * p.ksh + d]);
-      vval = to_f(v[bb * p.vsb + kv * p.vss + g * p.vsh + d]);
+      kval = k[bb * p.ksb + kv * p.kss + g * p.ksh + d];
+      vval = v[bb * p.vsb + kv * p.vss + g * p.vsh + d];
     }
     Ks[j * RS + d] = kval;
     Vs[j * RS + d] = vval;
@@ -136,8 +131,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
       float qval = 0.f, dval = 0.f;
       if (r < nrows && d < p.hd) {
         const int qi = q0 + r / m, h = g * m + r % m;
-        qval = to_f(q[bb * p.qsb + qi * p.qss + h * p.qsh + d]);
-        dval = to_f(dout[bb * p.dsb + qi * p.dss + h * p.dsh + d]);
+        qval = q[bb * p.qsb + qi * p.qss + h * p.qsh + d];
+        dval = dout[bb * p.dsb + qi * p.dss + h * p.dsh + d];
       }
       Qs[r * RS + d] = qval;
       dOs[r * RS + d] = dval;
@@ -227,8 +222,8 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     }
   }
 
-  T* dk = static_cast<T*>(p.dk);
-  T* dv = static_cast<T*>(p.dv);
+  float* dk = static_cast<float*>(p.dk);
+  float* dv = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < KI; ++i) {
     if (kpos[i] >= p.sk) continue;
@@ -237,40 +232,39 @@ __global__ void __launch_bounds__(THREADS) dkv_kernel(Params p) {
     for (int c = 0; c < OC; ++c) {
       const int d = tx + 8 * c;
       if (d < p.hd) {
-        store(dk + off + d, dk_acc[i][c]);
-        store(dv + off + d, dv_acc[i][c]);
+        dk[off + d] = dk_acc[i][c];
+        dv[off + d] = dv_acc[i][c];
       }
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_dkv_fma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sk + BK - 1) / BK, p.nkv, p.b);
-  dkv_kernel<T, HDP><<<grid, THREADS, smem, stream>>>(p);
+  flash_dkv_fma_kernel<HDP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<T, 32>(p, stream);
-  if (p.hd <= 64) return launch<T, 64>(p, stream);
-  if (p.hd <= 96) return launch<T, 96>(p, stream);
-  return launch<T, 128>(p, stream);
+  if (p.hd <= 32) return launch<32>(p, stream);
+  if (p.hd <= 64) return launch<64>(p, stream);
+  if (p.hd <= 96) return launch<96>(p, stream);
+  return launch<128>(p, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = fp32, 1 = bf16. Returns a cudaError_t; 0 means launched.
+// fp32 only. Returns a cudaError_t; 0 means launched.
 extern "C" int flash_attention_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
-    int dtype, int b, int sq, int sk, int nq, int nkv, int hd,
+    int b, int sq, int sk, int nq, int nkv, int hd,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -284,8 +278,5 @@ extern "C" int flash_attention_dkv(
            nq / nkv, ROWS / (nq / nkv), qsb, qss, qsh, ksb, kss, ksh,
            vsb, vss, vsh, dsb, dss, dsh, causal, window, q_offset, softcap,
            scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 1 ? dispatch<__nv_bfloat16>(p, st)
-                               : dispatch<float>(p, st);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(p, static_cast<cudaStream_t>(stream)));
 }

@@ -11,8 +11,8 @@
 // paper's GPT-3 score shape (b 2 x 104 heads x 2048 x 2048, bf16) 5.23 GB at
 // 3.35 TB/s, about 1.56 ms.
 //
-// Design, as the forward: a warp owns a row when sk <= 512 (eight rows to a
-// 256-thread block), the whole block otherwise. Pass 1 strides over the row
+// Design: a warp owns a row when sk <= 512 (eight rows to a 256-thread
+// block), the whole block otherwise. Pass 1 strides over the row
 // summing y * dy in fp32 per thread, then a warp-shuffle and a shared-memory
 // sum; pass 2 reads y and dy again (from L2 at these row lengths) and writes
 // dx.
@@ -31,8 +31,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 
 template <typename T, int TPR>
 __global__ void __launch_bounds__(THREADS)
-bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy, T* __restrict__ dx,
-           long long rows, int sk, float scale) {
+fused_softmax_bwd_kernel(const T* __restrict__ y, const T* __restrict__ dy,
+                         T* __restrict__ dx, long long rows, int sk, float scale) {
   constexpr int RPB = THREADS / TPR;  // rows per block
   __shared__ float red[THREADS / 32];
   const int lane = threadIdx.x % TPR;
@@ -63,7 +63,7 @@ cudaError_t launch(const void* y, const void* dy, void* dx, long long rows,
   constexpr int RPB = THREADS / TPR;
   const long long blocks = (rows + RPB - 1) / RPB;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bwd_kernel<T, TPR><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
+  fused_softmax_bwd_kernel<T, TPR><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(dy), static_cast<T*>(dx),
       rows, sk, scale);
   return cudaGetLastError();

@@ -8,23 +8,21 @@ keep its layout: q (b, sq, nq, hd), k/v (b, sk, nkv, hd); O in the input
 dtype and LSE (b, sq, nkv, m) in fp32, m = nq // nkv.
 
 ``flash_attention_bwd`` is the two-pass backward: a dq kernel (the twin of
-``_dq_kernel``) and ``csrc/flash_attention_dkv.cu`` (the twin of
-``_dkv_kernel``) for CUDA tensors, ``ref.flash_attention_bwd_ref`` for
-CPU tensors. D = rowsum(dO * O) is computed in plain torch
-(``ref.flash_attention_delta``) before the two launches, as the JAX package
-computes it outside its kernels; ``ref.flash_attention_dq_ref`` and
-``ref.flash_attention_dkv_ref`` are the plain versions of the two kernels.
+``_dq_kernel``) and a dk/dv kernel (the twin of ``_dkv_kernel``) for CUDA
+tensors, ``ref.flash_attention_bwd_ref`` for CPU tensors. D = rowsum(dO *
+O) is computed in plain torch (``ref.flash_attention_delta``) before the
+two launches, as the JAX package computes it outside its kernels;
+``ref.flash_attention_dq_ref`` and ``ref.flash_attention_dkv_ref`` are the
+plain versions of the two kernels.
 
-The forward and dq kernels have two routes, chosen by dtype alone
-(``route``), with no fallback between them:
-  * bf16 -> "sm90": ``csrc/flash_attention_fwd_sm90.cu`` and
-    ``csrc/flash_attention_dq_sm90.cu``, wgmma on bf16 tiles fed by TMA.
-    TMA takes a 16-byte aligned base and strides that are multiples of 16
-    bytes: anything else raises a ValueError before a launch.
-  * fp32 -> "fma": ``csrc/flash_attention_fwd.cu`` and
-    ``csrc/flash_attention_dq.cu``, exact fp32 products on the CUDA cores
-    (wgmma would run fp32 as TF32).
-dk/dv takes ``csrc/flash_attention_dkv.cu`` in both dtypes.
+Every kernel has two routes, chosen by dtype alone (``route``), with no
+fallback between them:
+  * bf16 -> "sm90": ``csrc/flash_attention_{fwd,dq,dkv}_sm90.cu``, wgmma on
+    bf16 tiles fed by TMA. TMA takes a 16-byte aligned base and strides
+    that are multiples of 16 bytes: anything else raises a ValueError
+    before a launch.
+  * fp32 -> "fma": ``csrc/flash_attention_{fwd,dq,dkv}.cu``, exact fp32
+    products on the CUDA cores (wgmma would run fp32 as TF32).
 
 ``flash_attention_fwd.launches``, ``flash_attention_bwd.dq_launches`` and
 ``flash_attention_bwd.dkv_launches`` count kernel launches of either route
@@ -41,13 +39,15 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_delta,
                                      flash_attention_ref)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
-#: the C entry point of the forward and dq kernel of each route
+#: the C entry point of each kernel on each route
 _ENTRIES = {("fwd", "sm90"): "flash_attention_fwd_sm90",
             ("fwd", "fma"): "flash_attention_fwd",
             ("dq", "sm90"): "flash_attention_dq_sm90",
-            ("dq", "fma"): "flash_attention_dq"}
+            ("dq", "fma"): "flash_attention_dq",
+            ("dkv", "sm90"): "flash_attention_dkv_sm90",
+            ("dkv", "fma"): "flash_attention_dkv"}
 
 
 def route(dtype):
@@ -73,8 +73,9 @@ def _check_tma(**tensors):
 
 
 def _entry(kernel, **tensors):
-    """The C entry point of ``kernel`` ("fwd" or "dq") on the route of q's
-    dtype; on the bf16 route only once TMA can read every tensor given."""
+    """The C entry point of ``kernel`` ("fwd", "dq" or "dkv") on the route
+    of q's dtype; on the bf16 route only once TMA can read every tensor
+    given."""
     kind = route(tensors["q"].dtype)
     if kind == "sm90":
         _check_tma(**tensors)
@@ -105,9 +106,8 @@ def _check(q, k, v):
 
 def _lib(name, n_ptrs, n_ints, n_strides):
     """The C entry point ``name`` of ``csrc/<name>.cu``: ``n_ptrs`` tensor
-    pointers, ``n_ints`` ints (the dtype where the kernel takes two, and
-    the six sizes), ``n_strides`` strides, the masks, softcap, scale and
-    the stream."""
+    pointers, ``n_ints`` ints (the six sizes), ``n_strides`` strides, the
+    masks, softcap, scale and the stream."""
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -187,6 +187,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
     if not (dout.device == out.device == lse.device == q.device):
         raise ValueError("q/out/lse/dout lie on different devices")
     dq_name = _entry("dq", q=q, k=k, v=v, dout=dout)
+    dkv_name = _entry("dkv", q=q, k=k, v=v, dout=dout)
     scale = scale if scale is not None else 1.0 / np.sqrt(hd)
     delta = flash_attention_delta(out, dout, lse)
     dq = torch.empty((b, sq, nq, hd), dtype=q.dtype, device=q.device)
@@ -197,7 +198,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
               *dout.stride()[:3], int(bool(causal)), int(window or 0),
               int(q_offset), float(softcap or 0.0), float(scale))
     fn_dq = _lib(dq_name, 7, 6, 12)
-    fn_dkv = _lib("flash_attention_dkv", 8, 7, 12)
+    fn_dkv = _lib(dkv_name, 8, 6, 12)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
     with torch.cuda.device(q.device):
@@ -205,9 +206,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal=True, window=0,
         err = fn_dq(*ptrs, dq.data_ptr(), *common, stream)
         _raise_if(err, dq_name)
         flash_attention_bwd.dq_launches += 1
-        err = fn_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
-                     *common, stream)
-        _raise_if(err, "flash_attention_dkv")
+        err = fn_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream)
+        _raise_if(err, dkv_name)
         flash_attention_bwd.dkv_launches += 1
     return dq, dk, dv
 

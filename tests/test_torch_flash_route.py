@@ -1,7 +1,8 @@
 """The flash wrapper's routing and TMA checks, in pure Python on the CPU.
 
-A CUDA tensor goes to one kernel pair by its dtype alone, with no fallback:
-bf16 to the sm90 kernels (wgmma and TMA), fp32 to the fp32 FMA kernels.
+A CUDA tensor goes to one set of kernels (forward, dq, dk/dv) by its dtype
+alone, with no fallback: bf16 to the sm90 kernels (wgmma and TMA), fp32 to
+the fp32 FMA kernels.
 The bf16 route raises a ValueError, before any allocation or launch, on
 what TMA cannot read. ``_entry`` is that decision; it only reads dtypes,
 base addresses and strides, so CPU tensors stand in for CUDA ones here.
@@ -34,6 +35,8 @@ def test_route_by_dtype():
     ("dq", torch.bfloat16, "flash_attention_dq_sm90"),
     ("fwd", torch.float32, "flash_attention_fwd"),
     ("dq", torch.float32, "flash_attention_dq"),
+    ("dkv", torch.bfloat16, "flash_attention_dkv_sm90"),
+    ("dkv", torch.float32, "flash_attention_dkv"),
 ])
 def test_entry_by_dtype(kernel, dtype, want):
     q, k, v = _qkv(dtype)
@@ -61,8 +64,9 @@ def test_bf16_route_raises_on_what_tma_cannot_read(make, match, which):
     tensors = dict(q=q, k=k, v=v, dout=torch.zeros_like(q))
     bad = make(torch.bfloat16)
     tensors[which] = bad if which in ("q", "dout") else bad[:, :, :2]
-    with pytest.raises(ValueError, match=match):
-        fa._entry("dq", **tensors)
+    for kernel in ("dq", "dkv"):
+        with pytest.raises(ValueError, match=match):
+            fa._entry(kernel, **tensors)
     if which != "dout":
         with pytest.raises(ValueError, match=match):
             fa._entry("fwd", **{n: tensors[n] for n in ("q", "k", "v")})
@@ -72,6 +76,8 @@ def test_bf16_route_raises_on_what_tma_cannot_read(make, match, which):
 def test_fp32_route_takes_any_stride(make):
     q, k, v = _qkv(torch.float32)
     assert fa._entry("fwd", q=make(torch.float32), k=k, v=v) == "flash_attention_fwd"
+    assert fa._entry("dkv", q=q, k=k, v=v, dout=make(torch.float32)) \
+        == "flash_attention_dkv"
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -60,6 +60,24 @@ def test_forward_matches_jax(shape, dtype, scale, causal):
     np.testing.assert_allclose(_np(got).sum(-1), np.ones(shape[:-1]), atol=2e-2)
 
 
+# row lengths on each side of the CUDA forward's instance switches (a warp
+# a row with 16-byte or scalar accesses, chip_smoke.py's FS_ROWS), at sizes
+# the CPU takes quickly
+ROW_CASES = [((2, sk, sk) if causal else (2, 3, sk), dtype, 0.3, causal)
+             for sk in (1, 7, 200, 513) for causal in (False, True)
+             for dtype in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("shape,dtype,scale,causal", ROW_CASES)
+def test_forward_matches_jax_at_the_kernel_row_lengths(shape, dtype, scale, causal):
+    jx, tx = _pair(_x(shape, 6), dtype)
+    want = jops.fused_softmax(jx, scale, causal, 64, True)
+    got = fs.fused_softmax_fwd(tx, scale=scale, causal=causal)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-6
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=0)
+    np.testing.assert_allclose(_np(got).sum(-1), np.ones(shape[:-1]), atol=2e-2)
+
+
 @pytest.mark.parametrize("shape,dtype,scale,causal", CASES)
 def test_grad_matches_jax(shape, dtype, scale, causal):
     import jax

@@ -218,6 +218,29 @@ def test_sm90_dq_matches_plain_and_repeats(cuda, b, sq, sk, nq, nkv, hd, window,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,nq,nkv,hd,window,softcap,q_offset", SM90_CASES)
+def test_sm90_dkv_matches_plain_and_repeats(cuda, b, sq, sk, nq, nkv, hd, window,
+                                            softcap, q_offset):
+    """The bf16 dk/dv kernel: one launch a backward, dK and dV within the
+    bf16 gradient bound, and two runs bit-equal (one block owns each key
+    tile, no atomics)."""
+    q, k, v, do = _bwd_inputs(cuda, b, sq, sk, nq, nkv, hd, "bfloat16", 6)
+    kw = dict(causal=True, window=window, softcap=softcap, q_offset=q_offset)
+    assert fa._entry("dkv", q=q, k=k, v=v, dout=do) == "flash_attention_dkv_sm90"
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    before = fa.flash_attention_bwd.dkv_launches
+    _, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    _, dk2, dv2 = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.dkv_launches == before + 2
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _, want_dk, want_dv = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    for t, w, src in ((dk, want_dk, k), (dv, want_dv, v)):
+        assert t.dtype == src.dtype and t.shape == src.shape
+        _assert_grad_close(t, w, "bfloat16")
+
+
+@pytest.mark.gpu
 def test_sm90_route_raises_before_launch_on_misaligned_strides(cuda):
     """TMA needs strides that are multiples of 16 bytes: a bf16 view with a
     68-element (136-byte) head stride is refused before any launch, while
@@ -245,6 +268,14 @@ FS_CASES = [
     ((96, 128), "float32", 2.0, False),
     ((2, 3, 700, 700), "float32", 0.1, True),      # rows wider than 512
 ]
+# the forward's instances, as chip_smoke.py's FS_ROWS: a warp a row in
+# registers up to 4096 columns, with 16-byte accesses where sk allows them
+# (200, 512, 2048, 4096) and scalar ones where it does not (1, 7, 513), and
+# the online block kernel past 4096; causal scores are square
+FS_CASES += [((((2, sk, sk) if sk <= 513 else (sk, sk)) if causal else (2, 33, sk)),
+              dtype, 0.3, causal)
+             for sk in (1, 7, 200, 512, 513, 2048, 4096, 8192)
+             for causal in (False, True) for dtype in ("float32", "bfloat16")]
 
 
 @pytest.mark.gpu
@@ -257,9 +288,11 @@ def test_fused_softmax_kernels_match_plain(cuda, shape, dtype, scale, causal):
     before = (fs.fused_softmax_fwd.launches, fs.fused_softmax_bwd.launches)
     y = fs.fused_softmax_fwd(x, scale=scale, causal=causal)
     dx = fs.fused_softmax_bwd(y, dy, scale=scale)
+    again = fs.fused_softmax_fwd(x, scale=scale, causal=causal)
     torch.cuda.synchronize()
     assert (fs.fused_softmax_fwd.launches, fs.fused_softmax_bwd.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 2, before[1] + 1)
+    assert torch.equal(y, again)
     bf16 = dtype == "bfloat16"
     # bf16: the tests' 2e-2 and, element by element, one bf16 rounding of
     # y (1e-4 + 1e-2|y|) and of dx (1e-2|dx| + 1e-3 mean|dx|)
