@@ -56,10 +56,20 @@ Phases, each fatal on failure:
      ``repro_torch.launch.pipeline`` (with Adam) on the card against the
      same arms on the CPU, and a host_offload unit's box off the card
      between OFFLOAD and FETCH (remat none and attn) with
-     ``memory_allocated`` falling by its bytes.
+     ``memory_allocated`` falling by its bytes;
+ 11. the paper's estimation path (``planner.measure``): a pinned D2H copy
+     rate beside the PCIe figure of ``core/h100.py``; ``launch.estimate``
+     on three arms at full width, seq 2048, m 2 (``GAIN``: llama-65b flash
+     b 2 -> 4, gpt3-96b recompute and flash b 1 -> 2), each measured
+     three times, its median gain beside ``required_stage_gain`` and the
+     paper's A100 gain; ``audit`` of the pipelined step (``AUDIT``, 1f1b
+     and bpipe: time scale, op skews, order divergence, each unit's real
+     saved bytes beside the memory model's); ``launch.pipeline --plan
+     auto`` at full width (``AUTO``); each path's flash launch counts.
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -70,8 +80,6 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak (NVIDIA data sheet)
-H100_HBM_BYTES_S = 3.35e12   # HBM3 bandwidth (NVIDIA data sheet)
 
 # b, s, nq, nkv, hd, dtype, window, softcap: tests/test_kernels.py's sweep
 SWEEP = [
@@ -123,9 +131,21 @@ FS_ROWS = [((((2, sk, sk) if sk <= 513 else (sk, sk)) if causal else (2, 33, sk)
            for sk in (1, 7, 200, 512, 513, 2048, 4096, 8192)
            for causal in (False, True) for dtype in ("float32", "bfloat16")]
 FS_MAIN = ((2, 104, 2048, 2048), "bfloat16", 1.0 / math.sqrt(96), True)
-H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores (NVIDIA data sheet)
 PIPE = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048, steps=3)
 TRAIN = dict(arch="llama-65b", layers=4, batch=1, seq=2048, steps=5)
+# the stage-gain arms, each run through ``launch.estimate`` at GAIN_SEQ
+# tokens: (arch, attention arm, stage layers, the memory model's b pair bx,
+# by). The depth is the deepest whose peak stayed under 70 GiB on the card:
+# measured peaks 60.36, 41.14 and 61.81 GiB at these depths (PERF.md). Each
+# arm is measured GAIN_RUNS times; its verdict is read from the median gain.
+GAIN = [("llama-65b", "flash", 3, 4, 2),
+        ("gpt3-96b", "recompute", 1, 2, 1),
+        ("gpt3-96b", "flash", 2, 2, 1)]
+GAIN_SEQ, GAIN_M, GAIN_RUNS = 2048, 2, 3      # GAIN_M: measure_stage_gain's m
+AUDIT = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048)
+# --plan auto trains with Adam: at PIPE's depth its moments (28 GiB) and the
+# launcher's copy of the params do not fit beside the stash, so 2 layers, p 2
+AUTO = dict(arch="llama-65b", layers=2, stages=2, batch=4, seq=2048, steps=2)
 
 
 def fail(msg):
@@ -232,12 +252,13 @@ def attention_bound(q, k, v, out, lse, *, causal, window, q_offset=0):
     bytes it must move over HBM bandwidth and the FLOPs of the (query, key)
     pairs these masks keep (two products of hd MACs each) over the bf16
     peak. Returns (ms, "bytes" | "operations")."""
+    from repro_torch.core.h100 import H100_HBM_BW, H100_PEAK_BF16
     b, sq, nq, hd = q.shape
     pairs = causal_pairs(sq, k.shape[1], causal=causal, window=window,
                          q_offset=q_offset)
     flops = 4.0 * b * nq * hd * pairs
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, lse))
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    t_ops, t_bytes = flops / H100_PEAK_BF16, nbytes / H100_HBM_BW
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -256,6 +277,7 @@ def bwd_bounds(q, k, v, lse, *, causal, window):
     dq does 3 products per kept (query, key) pair (S, dP, dS K), dk/dv 4
     (S, dP, P^T dO, dS^T Q), 2 hd FLOP each; each reads q, k, v, dO, LSE
     and D once and writes its outputs once. Returns {name: (ms, by)}."""
+    from repro_torch.core.h100 import H100_HBM_BW, H100_PEAK_BF16
     b, sq, nq, hd = q.shape
     pair_flops = 2.0 * b * nq * hd * causal_pairs(
         sq, k.shape[1], causal=causal, window=window)
@@ -265,8 +287,8 @@ def bwd_bounds(q, k, v, lse, *, causal, window):
     for name, n_products, written in (("flash_attention_dq", 3, q.numel()),
                                       ("flash_attention_dkv", 4,
                                        k.numel() + v.numel())):
-        t_ops = n_products * pair_flops / H100_BF16_FLOPS
-        t_bytes = (read + written * el) / H100_HBM_BYTES_S
+        t_ops = n_products * pair_flops / H100_PEAK_BF16
+        t_bytes = (read + written * el) / H100_HBM_BW
         out[name] = (1e3 * max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -363,6 +385,7 @@ def train_path(torch, dev, smi):
     """Phase 6: the launcher's training loop at full width; returns the
     kernel launch counts over that run."""
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.h100 import H100_PEAK_BF16
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as launch_train
@@ -385,7 +408,7 @@ def train_path(torch, dev, smi):
     tokens = t["batch"] * t["seq"]
     n = cfg.param_count()
     flops = (6 * n + 6 * cfg.num_layers * t["seq"] * cfg.d_model) * tokens
-    mfu = flops / step_s / H100_BF16_FLOPS
+    mfu = flops / step_s / H100_PEAK_BF16
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"[train] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
           f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
@@ -559,6 +582,7 @@ def fused_softmax_phase(torch, dev, gen, smi):
     """Phase 8: both fused softmax kernels against their plain versions, the
     op's path at the section 3.2 shape, and the timings. Returns the rows'
     numbers by kernel name."""
+    from repro_torch.core.h100 import H100_HBM_BW, H100_PEAK_FP32
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import fused_softmax as fs
     from repro_torch.kernels import ops, ref
@@ -636,7 +660,7 @@ def fused_softmax_phase(torch, dev, gen, smi):
              lambda: fs.fused_softmax_bwd(y, dy, scale=scale),
              lambda: ref.fused_softmax_bwd_ref(y, dy, scale=scale),
              lambda: torch._softmax_backward_data(dy, y, -1, y.dtype))):
-        t_bytes, t_ops = n_bytes / H100_HBM_BYTES_S, n_ops / H100_FP32_FLOPS
+        t_bytes, t_ops = n_bytes / H100_HBM_BW, n_ops / H100_PEAK_FP32
         rows[name] = dict(
             max_abs_err=err[name], launches=launches[name],
             ms=time_ms(torch, kernel, 10), plain_ms=time_ms(torch, plain, 3, warmup=1),
@@ -673,10 +697,31 @@ def fused_softmax_phase(torch, dev, gen, smi):
     return rows
 
 
+@contextlib.contextmanager
+def unit_bytes_recorded(real):
+    """While open, every stash unit's box appends its saved bytes to
+    ``real`` once its forward has filled it."""
+    from repro_torch.memory import offload as mem_offload
+
+    class Box(mem_offload.Box):
+        def hooks(self):
+            @contextlib.contextmanager
+            def filled():
+                with super(Box, self).hooks():
+                    yield
+                real.append(self.nbytes())
+            return filled()
+
+    plain_box, mem_offload.Box = mem_offload.Box, Box
+    try:
+        yield
+    finally:
+        mem_offload.Box = plain_box
+
+
 def pipeline_path(torch, dev, smi):
     """Phase 9: the pipelined step at full width under 1f1b and bpipe.
     Returns the flash launch counts of each arm's executor steps."""
-    import contextlib
     import statistics
 
     from repro_torch import serve
@@ -686,7 +731,6 @@ def pipeline_path(torch, dev, smi):
     from repro_torch.core.plan import ScheduleSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.memory import offload as mem_offload
     from repro_torch.models import model as M
     from repro_torch.pipeline import PipelineExecutor
 
@@ -701,19 +745,8 @@ def pipeline_path(torch, dev, smi):
                  s=t["seq"], v=cfg.vocab_size, B=bsz, p=t["p"], t=1)
     modelled = mm.sliced_unit_bytes(n, "flash", 1, 1)
     real = []
-
-    class Box(mem_offload.Box):  # records each unit's saved bytes
-        def hooks(self):
-            @contextlib.contextmanager
-            def filled():
-                with super(Box, self).hooks():
-                    yield
-                real.append(self.nbytes())
-            return filled()
-
     out = {}
-    plain_box, mem_offload.Box = mem_offload.Box, Box
-    try:
+    with unit_bytes_recorded(real):
         for kind in ("1f1b", "bpipe"):
             ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
                                   micro_batch=t["micro"], remat="flash")
@@ -756,8 +789,6 @@ def pipeline_path(torch, dev, smi):
                 res = None
             del res, ex
             torch.cuda.empty_cache()
-    finally:
-        mem_offload.Box = plain_box
     a, b = out["1f1b"], out["bpipe"]
     want = [min(t["p"] - i, t["m"]) for i in range(t["p"])]
     ok_peaks = [a["stats"].peak_local[i] for i in range(t["p"])] == want
@@ -929,6 +960,193 @@ def pipeline_checks(torch, dev):
                 fail(f"a host_offload unit left tensors on the card (remat={remat})")
     finally:
         mem_offload.to_host, mem_offload.to_device = to_host, to_device
+
+
+def d2h_rate(torch):
+    """Pinned device-to-host copy rate in bytes/s: 1 GiB copies, 5 timed
+    after one warm-up, by CUDA events."""
+    n = 2**30
+    x = torch.empty(n, dtype=torch.uint8, device="cuda")
+    h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    h.copy_(x, non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        h.copy_(x, non_blocking=True)
+    end.record()
+    end.synchronize()
+    return 5 * n / (start.elapsed_time(end) / 1e3)
+
+
+def paper_gain(arch, arm, bx, by):
+    """The paper's A100 stage gain MFU_stage(bx) / MFU_stage(by) (Table 5)."""
+    from repro_torch.core import estimator as E
+    mfu = {r.b: r.mfu_stage for r in E.PAPER_ROWS
+           if r.model == arch and r.attention == arm}
+    return mfu[bx] / mfu[by]
+
+
+def stage_gain_phase(torch, dev, smi):
+    """Phase 11a: ``launch.estimate`` on each ``GAIN`` arm at full width.
+    Returns each arm's flash launch counts by path name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import estimate
+
+    out = {}
+    for arch, arm, layers, bx, by in GAIN:
+        impl, remat = estimate.ARMS[arm]
+        argv = ["--arch", arch, "--attention", arm, "--layers", str(layers),
+                "--seq", str(GAIN_SEQ), "--device", str(dev)]
+        paper = paper_gain(arch, arm, bx, by)
+        label = f"stage gain {arch} {arm}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero(fa)
+        gains = []
+        for run in range(1, GAIN_RUNS + 1):
+            t0 = time.perf_counter()
+            res = estimate.main(argv)
+            wall = time.perf_counter() - t0
+            if (res["b_bpipe"], res["b_1f1b"]) != (bx, by):
+                fail(f"{label}: the memory model's b pair is "
+                     f"{res['b_bpipe']}, {res['b_1f1b']}, not {bx}, {by}")
+            r, cfg, need = res["gain"], res["stage"], res["required"]
+            print(f"[estimate] {label} run {run}/{GAIN_RUNS}: {cfg.num_layers} layers "
+                  f"d{cfg.d_model} {cfg.num_heads}x{cfg.head_dim} {cfg.dtype} "
+                  f"attn={cfg.attn_impl} remat={remat}, p 1 (1f1b), m {GAIN_M} x seq "
+                  f"{GAIN_SEQ}, b {by} -> {bx}: Tx (b {bx}) {r['Tx'] * 1e3:.3f} ms, "
+                  f"Ty (b {by}) {r['Ty'] * 1e3:.3f} ms (median F + median B of the "
+                  f"traced step); measured gain {r['gain']:.4f}; {wall:.1f} s")
+            if not all(math.isfinite(r[k]) and r[k] > 0 for k in ("Tx", "Ty", "gain")):
+                fail(f"{label}: times {r['Tx']}, {r['Ty']} are not finite and positive")
+            gains.append(r["gain"])
+            del res, r
+        counts = counts_read(fa)
+        peak = torch.cuda.max_memory_allocated()
+        gains.sort()
+        median, spread = gains[len(gains) // 2], gains[-1] - gains[0]
+        verdict = "can" if median > need else "cannot"
+        near = (f"; the margin {abs(median - need):.4f} to the bar is within the "
+                f"spread {spread:.4f}, so this verdict is not settled"
+                if abs(median - need) <= spread else "")
+        print(f"[estimate] {label}: median gain {median:.4f} over {GAIN_RUNS} runs "
+              f"(spread {gains[0]:.4f}-{gains[-1]:.4f}) against required_stage_gain "
+              f"{need:.4f} (p 8, t 4, B 128); the paper's A100 gain {paper:.4f} "
+              f"(Table 5); verdict: BPipe at b {bx} {verdict} win on this stage{near}. "
+              f"The stage is {layers} layers at full width on one card (t = 1), the "
+              f"paper's is l/p = 10 layers over t = 4 A100s; peak {peak / 2**30:.2f} "
+              f"GiB; launches {counts}; card {smi}")
+        want = 2 * GAIN_M * layers * 2 * GAIN_RUNS if impl == "flash" else 0
+        if any(v != want for v in counts.values()):
+            fail(f"{label}: launches {counts}, want {want} of each flash kernel")
+        out[label] = counts
+    return out
+
+
+def audit_phase(torch, dev, smi):
+    """Phase 11b: ``measure.audit`` of the pipelined step under 1f1b and
+    bpipe. Returns each run's flash launch counts by path name."""
+    from repro_torch import serve
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.notation import Notation
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.planner import measure
+
+    t = AUDIT
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash")
+    n = Notation(a=cfg.num_heads, b=t["micro"], h=cfg.d_model, l=cfg.num_layers,
+                 s=t["seq"], v=cfg.vocab_size, B=t["m"] * t["micro"], p=t["p"], t=1)
+    out = {}
+    for kind in ("1f1b", "bpipe"):
+        real = []
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        counts_zero(fa)
+        with unit_bytes_recorded(real):
+            rep = measure.audit(cfg, ScheduleSpec(kind, t["p"], t["m"]),
+                                micro_batch=t["micro"], seq=t["seq"], device=dev)
+        counts = counts_read(fa)
+        skews = ", ".join(f"{s.op} {s.skew:.4f} (x{s.count})" for s in rep.op_skew)
+        div = ", ".join(f"{i}: {d:.4f}" for i, d in sorted(rep.order_div.items()))
+        print(f"[audit] {cfg.name} {cfg.num_layers} layers {kind} p{t['p']} m{t['m']} "
+              f"x {t['micro']} x {t['seq']}: time_scale (real step / simulated step "
+              f"under the fitted Tf, Tb) {rep.time_scale:.6g}; op skew {skews}; order_divergence by stage {{{div}}}; "
+              f"instructions {rep.real_count} real / {rep.sim_count} simulated, "
+              f"missing_in_real {rep.missing_in_real}, missing_in_sim "
+              f"{rep.missing_in_sim}; card {smi}")
+        print(f"[audit] {kind}: saved bytes per unit {min(real) / 2**30:.3f}-"
+              f"{max(real) / 2**30:.3f} GiB real over {len(real)} units vs memory_model "
+              f"{mm.sliced_unit_bytes(n, 'none', 1, 1) / 2**30:.3f} GiB (arm none, the "
+              f"executor's accounting at remat none) and "
+              f"{mm.sliced_unit_bytes(n, 'flash', 1, 1) / 2**30:.3f} GiB (arm flash, "
+              f"the attention it runs); launches {counts}")
+        want = 2 * t["m"] * t["layers"]
+        ok = (not rep.missing_in_real and not rep.missing_in_sim
+              and math.isfinite(rep.time_scale) and rep.time_scale > 0
+              and all(v == want for v in counts.values()))
+        if not ok:
+            fail(f"audit {kind}: missing lists, time scale or launches {counts} "
+                 f"(want {want}) are wrong")
+        out[f"audit {kind}"] = counts
+    return out
+
+
+def plan_auto_phase(torch, dev, smi):
+    """Phase 11c: ``launch.pipeline --plan auto`` at full width. Returns its
+    flash launch counts by path name."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import pipeline as launch_pipeline
+
+    a = AUTO
+    argv = ["--plan", "auto", "--arch", a["arch"], "--layers", str(a["layers"]),
+            "--stages", str(a["stages"]), "--batch", str(a["batch"]), "--seq",
+            str(a["seq"]), "--steps", str(a["steps"]), "--device", str(dev)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(fa)
+    t0 = time.perf_counter()
+    res = launch_pipeline.main(argv)
+    wall = time.perf_counter() - t0
+    counts = counts_read(fa)
+    best = res["plan"]
+    (label, arm), = res["arms"].items()
+    costs, replayed = arm["costs"], arm["replayed"]
+    m = a["batch"] // best.cand.b
+    print(f"[plan auto] {a['arch']} {a['layers']} layers p{a['stages']} batch "
+          f"{a['batch']} x {a['seq']}: recommended {label} b {best.cand.b} m {m} "
+          f"(est {100 * best.mfu:.1f} % MFU on the planner's A100 costs); ran {a['steps']} "
+          f"steps with Adam, losses {arm['losses']}; recalibrated from the traced "
+          f"last step: Tf {costs.Tf * 1e3:.3f} ms, Tb {costs.Tb * 1e3:.3f} ms -> "
+          f"simulated step {replayed.makespan * 1e3:.2f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {wall:.1f} s "
+          f"(params drawn on the CPU); launches {counts}; card {smi}")
+    want = a["steps"] * m * a["layers"]
+    ok = (all(math.isfinite(x) for x in arm["losses"])
+          and all(math.isfinite(v) and v > 0 for v in (costs.Tf, costs.Tb))
+          and all(v == want for v in counts.values()))
+    if not ok:
+        fail(f"--plan auto: losses, Tf/Tb or launches {counts} (want {want}) "
+             f"are wrong")
+    return {"plan auto": counts}
+
+
+def estimation_phase(torch, dev, smi):
+    """Phase 11: the paper's estimation path on the card. Returns the flash
+    launch counts of each of its paths."""
+    from repro_torch.core.h100 import H100_PCIE_BW
+    rate = d2h_rate(torch)
+    print(f"[estimate] pinned D2H copy {rate / 1e9:.2f} GB/s (1 GiB copies, CUDA "
+          f"events) beside the PCIe Gen5 x16 figure {H100_PCIE_BW / 1e9:.0f} GB/s a "
+          f"direction (core/h100.py); card {smi}")
+    counts = stage_gain_phase(torch, dev, smi)
+    counts.update(audit_phase(torch, dev, smi))
+    counts.update(plan_auto_phase(torch, dev, smi))
+    return counts
 
 
 def sass_counts(libs):
@@ -1243,9 +1461,13 @@ def main():
     # -- 10. is the pipelined path right ---------------------------------------------------
     pipeline_checks(torch, dev)
 
+    # -- 11. the estimation path: stage gains, audits, --plan auto ------------------------
+    estimate_counts = estimation_phase(torch, dev, smi)
+
     def by_path(name):
         return {"serve": serve_counts.get(name, 0), "train": train_counts.get(name, 0),
-                **{f"pipeline {kind}": arm["counts"][name] for kind, arm in pipe.items()}}
+                **{f"pipeline {kind}": arm["counts"][name] for kind, arm in pipe.items()},
+                **{path: c[name] for path, c in estimate_counts.items()}}
 
     print(json.dumps({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",

@@ -12,7 +12,11 @@ Adam, data, checkpoints) with hand-written CUDA flash-attention dq and
 dk/dv backward kernels; the pipelined step (``pipeline.PipelineExecutor``,
 ``launch.pipeline``: GPipe, 1F1B, BPipe, interleaved, the residency
 policies) over the port's own copies of the schedule layer; the fused
-scale-mask-softmax op with hand-written CUDA forward and backward kernels.
+scale-mask-softmax op with hand-written CUDA forward and backward kernels;
+the paper's estimation path over own copies of the planner, simulator,
+estimator and obs layers (``launch.plan``, ``launch.estimate``,
+``launch.pipeline --plan auto``, with ``planner.measure`` timing one stage
+and auditing the simulator against the executor on the card).
 """
 from __future__ import annotations
 

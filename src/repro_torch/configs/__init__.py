@@ -3,14 +3,17 @@ names, as the JAX package's registry.
 
 The port keeps its own copy of every config module; ``tests/test_torch_guard.py``
 holds each one equal, field by field, to its JAX twin so the copies cannot
-drift. The long-context cases and the assignment's input shapes are not
-ported yet.
+drift. ``longcontext`` (the long-context cases) is a copy held equal by
+``tests/test_torch_core.py``; the assignment's input shapes are not ported
+yet.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
+from repro_torch.configs.longcontext import (LONG_CONTEXT,  # noqa: F401
+                                             LongContextCase, get_case)
 
 from repro_torch.configs.recurrentgemma_2b import CONFIG as _recurrentgemma_2b
 from repro_torch.configs.qwen3_14b import CONFIG as _qwen3_14b

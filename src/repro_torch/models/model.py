@@ -23,6 +23,8 @@ from repro_torch.models.blocks import PatternStack
 from repro_torch.models.layers import (apply_norm, cdtype, embed, init_embed,
                                        init_norm, unembed)
 
+ENCODER_FRAMES = 1500  # whisper-style fixed encoder length (core/flops.py)
+
 
 def _stack(cfg: ModelConfig) -> PatternStack:
     if cfg.is_encdec:

@@ -1,10 +1,14 @@
 """The port's own copies of the JAX package's framework-free layer (schedule
 notation, kinds, compiled plans, memory model, residency policies, store,
-transfer channels, event schema), held to the originals.
+transfer channels and engine, event schema and the rest of the obs layer,
+BPipe pairing, the estimator, FLOP counts, the simulator, the planner and
+the long-context cases), held to the originals.
 
 Each copy is the original with ``repro.`` rewritten to ``repro_torch.``:
 their code (the AST without docstrings, which may speak of the port's own
-mechanism) is equal. Their behaviour is checked as well: compiled plans,
+mechanism) is equal. ``planner/calibrate.py`` and ``obs/compare.py`` are
+copies less the three functions that build an executor (their torch
+versions are ``planner/measure.py``'s). Their behaviour is checked as well: compiled plans,
 stash accounting, memory-model bytes and the policy registries agree, and
 registering a policy clears the port's plan cache, not the JAX package's.
 """
@@ -30,7 +34,17 @@ SRC = ROOT / "src"
 COPIES = ["core/notation.py", "core/schedule.py", "core/plan.py",
           "core/memory_model.py", "memory/__init__.py", "memory/policy.py",
           "memory/recompute.py", "memory/store.py", "transfer/channel.py",
-          "obs/events.py"]
+          "obs/events.py",
+          "core/bpipe.py", "core/estimator.py", "core/flops.py",
+          "core/simulator.py", "transfer/engine.py", "transfer/__init__.py",
+          "obs/__init__.py", "obs/timeline.py", "obs/export.py",
+          "obs/metrics.py", "planner/__init__.py", "planner/space.py",
+          "planner/feasibility.py", "planner/rank.py", "planner/report.py",
+          "configs/longcontext.py"]
+# copies less the functions that build an executor (planner/measure.py)
+PARTIAL_COPIES = {"planner/calibrate.py": ("measure_stage_T",
+                                           "measure_stage_gain"),
+                  "obs/compare.py": ("audit",)}
 
 
 def _strip_docstrings(tree):
@@ -59,6 +73,18 @@ def test_copy_equals_original(rel):
     assert ast.dump(copy) == ast.dump(orig)
 
 
+@pytest.mark.parametrize("rel", sorted(PARTIAL_COPIES))
+def test_partial_copy_equals_original_less_its_executor_functions(rel):
+    moved = PARTIAL_COPIES[rel]
+    orig = _tree(SRC / "repro" / rel, rewrite=True)
+    assert {n.name for n in orig.body
+            if isinstance(n, ast.FunctionDef)} >= set(moved)
+    orig.body = [n for n in orig.body
+                 if not (isinstance(n, ast.FunctionDef) and n.name in moved)]
+    copy = _tree(SRC / "repro_torch" / rel)
+    assert ast.dump(copy) == ast.dump(orig)
+
+
 def _node(tree, name):
     return next(n for n in tree.body if getattr(n, "name", None) == name
                 or (isinstance(n, ast.Assign)
@@ -68,11 +94,14 @@ def _node(tree, name):
 @pytest.mark.parametrize("rel,name", [
     ("transfer/runtime.py", "AsyncTransferRuntime"),
     ("memory/offload.py", "HOST_OFFLOAD"),
+    ("launch/plan.py", "resolve_config"),
+    ("launch/plan.py", "main"),
 ])
 def test_port_modules_keep_the_originals_parts(rel, name):
     """``runtime`` and ``offload`` differ from their twins in how a copy is
     made and waited for; the depth-capped runtime and the policy they
-    register are the originals'."""
+    register are the originals'. ``launch/plan.py`` differs in its chip and
+    link tables (the H100 figures); its CLI is the original's."""
     copy = _node(_tree(SRC / "repro_torch" / rel), name)
     orig = _node(_tree(SRC / "repro" / rel, rewrite=True), name)
     assert ast.dump(copy) == ast.dump(orig)
