@@ -9,14 +9,16 @@ Phases, each fatal on failure:
      and UTMALDG instructions in each sm90 library (``cuobjdump -sass``);
   2. every kernel against its plain PyTorch version on the card, at the
      kernel tests' shapes and tolerances, at the bf16 route's own cases
-     (``SM90_SWEEP``) and at the main paths' shapes: the flash forward (two
-     runs bit-equal), and the backward's dq and dk/dv kernels (two runs
-     bit-equal); each check prints its route (``sm90`` for bf16, ``fma``
-     for fp32) and the C entry points it took;
+     (``SM90_SWEEP``), at the main paths' shapes and at full-width sequence
+     slices (``SLICED``: q_offset 1024 and 1536 over 2048 keys): the flash
+     forward (two runs bit-equal), and the backward's dq and dk/dv kernels
+     (two runs bit-equal); each check prints its route (``sm90`` for bf16,
+     ``fma`` for fp32) and the C entry points it took;
   3. the kernels timed at the main paths' shapes beside their plain
      versions (one each: the forward, the dq pass, the dk/dv pass), one
      PyTorch library call as a yardstick, and the card's bound; the whole
-     backward (D, dq and dk/dv) beside SDPA's;
+     backward (D, dq and dk/dv) beside SDPA's; the three kernels again at
+     the ``SLICED`` shapes beside SDPA under the same (lower-right) mask;
   4. the serving path: ``repro_torch.serve`` on llama-65b at full width, 10
      layers (one stage of the paper's 8-way split of 80), batch 4, prompt
      2048, 16 generated tokens, flash attention, bf16 compute; with the
@@ -52,6 +54,18 @@ Phases, each fatal on failure:
      memory, each unit's real saved bytes beside the modelled unit bytes;
      checks the peaks, the swaps, 1f1b == bpipe (loss and per-leaf grad
      norms), the loss against ``loss_fn`` and the flash launch counts;
+ 12. (run right after phase 9, on its params and batches) the sequence-
+     sliced pipelined step (``ScheduleSpec.seq_chunks``), ``SLICED_RUNS``:
+     1f1b at c 2 and c 4, bpipe at c 2, 1f1b c 2 under host_offload; then
+     the long-context run ``LONG`` (4 x 8192 tokens, c 4); each with step
+     ms, tokens/s, peak stash against the compiled plan's, swaps, peak
+     memory, each unit's real saved bytes beside ``sliced_unit_bytes`` and
+     the flash launch counts (m c layers a step); checks the peaks, 1f1b c 2
+     == bpipe c 2 bit for bit, each sliced loss and per-leaf grad norm
+     against phase 9's unsliced step (``SLICED_LOSS_TOL``,
+     ``SLICED_NORM_RTOL``), memory_allocated falling by a box's bytes at
+     each OFFLOAD; and at a small fp32 size a sliced step on the card
+     against the CPU and against the unsliced step;
  10. the pipelined path at a small fp32 size: every arm of
      ``repro_torch.launch.pipeline`` (with Adam) on the card against the
      same arms on the CPU, and a host_offload unit's box off the card
@@ -111,6 +125,14 @@ SM90_SWEEP = [
     (1, 256, 256, 32, 4, 128, 64, 30.0, 0),
     (1, 130, 130, 4, 4, 96, 0, 20.0, 0),
 ]
+# full-width sequence slices of the bf16 route, b, sq, sk, nq, nkv, hd,
+# q_offset: the second of two and the last of four slices of a llama-65b
+# sequence of 2048 (64 x 128 heads), and the second of two of gpt3-96b's
+# (104 x 96): queries see a prefix of q_offset keys whole and their own
+# slice's keys causally
+SLICED = [(1, 1024, 2048, 64, 64, 128, 1024),
+          (1, 512, 2048, 64, 64, 128, 1536),
+          (1, 1024, 2048, 104, 104, 96, 1024)]
 MAIN = dict(arch="llama-65b", layers=10, batch=4, prompt=2048, gen=16)
 # the fused softmax sweep of tests/test_kernels.py:94-99 (shape, dtype,
 # scale, causal) plus one fp32 case past the kernels' 512-column switch; and
@@ -132,6 +154,24 @@ FS_ROWS = [((((2, sk, sk) if sk <= 513 else (sk, sk)) if causal else (2, 33, sk)
            for causal in (False, True) for dtype in ("float32", "bfloat16")]
 FS_MAIN = ((2, 104, 2048, 2048), "bfloat16", 1.0 / math.sqrt(96), True)
 PIPE = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048, steps=3)
+# a unit's real saved bytes in phase 9 and the audit while autograd still
+# saved each weight's bf16 copy, before ``layers.cast_matmul`` (PERF.md §6)
+UNIT_GIB_WITH_COPIES = "2.315-3.204"
+# phase 12, the sequence-sliced pipelined step on phase 9's model, params and
+# batches: (kind, seq_chunks, residency, steps); the last ``steps`` batches
+# run, so every arm's last step is phase 9's last batch
+SLICED_RUNS = [("1f1b", 2, "none", 3), ("bpipe", 2, "none", 3),
+               ("1f1b", 4, "none", 2), ("1f1b", 2, "host_offload", 2)]
+# the long-context run, where slicing is meant to pay: 4 x 1 x 8192 tokens
+# in 4 slices. Reckoned peak (PERF.md): 14.1 GiB of params, as much again of
+# grads, and a stash of [7, 6, 5, 4] slice units of about 1.0-1.3 GiB
+LONG = dict(kind="1f1b", seq=8192, seq_chunks=4, steps=2)
+# bf16 bars of a sliced step against phase 9's unsliced step on the same
+# batch: loss (an fp32 mean over 8192 nlls) within phase 9's 1e-2 against
+# loss_fn, each leaf's grad norm within 1e-2 of it relatively. The two run
+# other GEMM shapes (slices of 1024 or 512 rows against 2048), so bf16
+# activations round apart.
+SLICED_LOSS_TOL, SLICED_NORM_RTOL = 1e-2, 1e-2
 TRAIN = dict(arch="llama-65b", layers=4, batch=1, seq=2048, steps=5)
 # the stage-gain arms, each run through ``launch.estimate`` at GAIN_SEQ
 # tokens: (arch, attention arm, stage layers, the memory model's b pair bx,
@@ -272,7 +312,7 @@ def causal_pairs(sq, sk, *, causal, window, q_offset=0):
     return pairs
 
 
-def bwd_bounds(q, k, v, lse, *, causal, window):
+def bwd_bounds(q, k, v, lse, *, causal, window, q_offset=0):
     """Least time of each backward kernel on an H100, as for the forward:
     dq does 3 products per kept (query, key) pair (S, dP, dS K), dk/dv 4
     (S, dP, P^T dO, dS^T Q), 2 hd FLOP each; each reads q, k, v, dO, LSE
@@ -280,7 +320,7 @@ def bwd_bounds(q, k, v, lse, *, causal, window):
     from repro_torch.core.h100 import H100_HBM_BW, H100_PEAK_BF16
     b, sq, nq, hd = q.shape
     pair_flops = 2.0 * b * nq * hd * causal_pairs(
-        sq, k.shape[1], causal=causal, window=window)
+        sq, k.shape[1], causal=causal, window=window, q_offset=q_offset)
     el = q.element_size()
     read = (2 * q.numel() + k.numel() + v.numel()) * el + 2 * lse.numel() * 4
     out = {}
@@ -292,6 +332,64 @@ def bwd_bounds(q, k, v, lse, *, causal, window):
         out[name] = (1e3 * max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
+
+
+def sliced_kernel_times(torch, F, fa, ref, qkv, gen, dev, smi):
+    """The three flash kernels timed at the full-width slices of ``SLICED``:
+    the forward by CUDA events, dq and dk/dv by the profiler's device time
+    per launch, each beside its plain version, the bound for the pairs the
+    causal mask keeps over the prefix and the slice, and SDPA forward and
+    backward with the same mask (``causal_lower_right``: the last query sees
+    every key). Returns one row per shape."""
+    from torch.nn.attention.bias import causal_lower_right
+    rows = []
+    for b, sq, sk, nq, nkv, hd, off in SLICED:
+        q, k, v = qkv(b, sq, sk, nq, nkv, hd, "bfloat16")
+        do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        kw = dict(causal=True, q_offset=off)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+        fwd_bound = attention_bound(q, k, v, out, lse, causal=True, window=0,
+                                    q_offset=off)
+        bounds = bwd_bounds(q, k, v, lse, causal=True, window=0, q_offset=off)
+        fwd_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw), 10)
+        fwd_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw),
+                            3, warmup=1)
+        split = kernel_device_ms(
+            torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+            ["flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"])
+        delta = ref.flash_attention_delta(out, do, lse)
+        plain = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do, **kw),
+                               3, warmup=1)
+                 for name, f in (("flash_attention_dq", ref.flash_attention_dq_ref),
+                                 ("flash_attention_dkv", ref.flash_attention_dkv_ref))}
+        mask = causal_lower_right(sq, sk)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), 10)
+        ot = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+        shape = f"b{b} sq{sq} sk{sk} {nq}x{hd} off{off}"
+        row = {"shape": shape,
+               "flash_attention_fwd": dict(ms=fwd_ms, plain_ms=fwd_plain,
+                                           bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                                           library_ms=sdpa_ms),
+               **{name: dict(ms=split[kname], plain_ms=plain[name],
+                             bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                             library_ms=sdpa_bwd_ms)
+                  for name, kname in (("flash_attention_dq", "flash_dq_sm90_kernel"),
+                                      ("flash_attention_dkv", "flash_dkv_sm90_kernel"))}}
+        for name in ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv"):
+            r = row[name]
+            print(f"[time] {name} sliced {shape} bf16: kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), sdpa lower-right causal "
+                  f"{'forward' if name == 'flash_attention_fwd' else 'backward (dq, dk, dv together)'} "
+                  f"{r['library_ms']:.4f} ms; card {smi}")
+        rows.append(row)
+        del q, k, v, do, out, lse, delta, qt, kt, vt, ot
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_device_ms(torch, fn, names, iters=5):
@@ -721,16 +819,11 @@ def unit_bytes_recorded(real):
 
 def pipeline_path(torch, dev, smi):
     """Phase 9: the pipelined step at full width under 1f1b and bpipe.
-    Returns the flash launch counts of each arm's executor steps."""
-    import statistics
-
+    Returns each arm's results (its flash launch counts among them), and
+    the params and batches, which phase 12 takes up."""
     from repro_torch import serve
-    from repro_torch import tree as T
-    from repro_torch.core import memory_model as mm
-    from repro_torch.core.notation import Notation
     from repro_torch.core.plan import ScheduleSpec
     from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
     from repro_torch.pipeline import PipelineExecutor
 
@@ -741,54 +834,16 @@ def pipeline_path(torch, dev, smi):
     dc = DataConfig(batch=bsz, seq_len=t["seq"])
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, dc, i).items()}
                for i in range(t["steps"])]
-    n = Notation(a=cfg.num_heads, b=t["micro"], h=cfg.d_model, l=cfg.num_layers,
-                 s=t["seq"], v=cfg.vocab_size, B=bsz, p=t["p"], t=1)
-    modelled = mm.sliced_unit_bytes(n, "flash", 1, 1)
-    real = []
     out = {}
-    with unit_bytes_recorded(real):
-        for kind in ("1f1b", "bpipe"):
-            ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
-                                  micro_batch=t["micro"], remat="flash")
-            real.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            counts_zero(fa)
-            times, res = [], None
-            for batch in batches:
-                del res
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                res = ex.step(params, batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            counts = counts_read(fa)
-            peak = torch.cuda.max_memory_allocated()
-            step_s = statistics.median(times)
-            st = res.stats
-            norms = [float(g.float().norm()) for g in T.leaves(res.grads)]
-            out[kind] = dict(counts=counts, loss=float(res.loss), norms=norms,
-                             stats=st, step_ms=1e3 * step_s, peak=peak)
-            print(f"[pipeline] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
-                  f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
-                  f"attn={cfg.attn_impl} {kind} p{t['p']} m{t['m']} x "
-                  f"{t['micro']} x {t['seq']}: steps "
-                  f"{' / '.join(f'{1e3 * s:.2f}' for s in times)} ms, median "
-                  f"{1e3 * step_s:.2f} ms, {bsz * t['seq'] / step_s:.1f} tokens/s; "
-                  f"loss {res.loss.item():.6f}; peak stash/stage "
-                  f"{[st.peak_local[i] for i in range(t['p'])]}, evictions "
-                  f"{st.evictions} loads {st.loads}; max_memory_allocated "
-                  f"{peak / 2**30:.2f} GiB; saved bytes per unit {min(real) / 2**30:.3f}"
-                  f"-{max(real) / 2**30:.3f} GiB real vs {modelled / 2**30:.3f} GiB "
-                  f"modelled (memory_model, flash arm); card {smi}")
-            print(f"[pipeline] {kind} launches over its {t['steps']} steps: {counts}")
-            if kind == "1f1b":  # where the time goes: one more step, profiled
-                del res
-                profile_window(torch, "pipelined step (1f1b)",
-                               lambda: ex.step(params, batches[0]), top=12)
-                res = None
-            del res, ex
-            torch.cuda.empty_cache()
+    for kind in ("1f1b", "bpipe"):
+        ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
+                              micro_batch=t["micro"], remat="flash")
+        out[kind] = pipelined_run(torch, dev, ex, params, batches, kind, smi,
+                                  tag="pipeline")
+        if kind == "1f1b":  # where the time goes: one more step, profiled
+            profile_window(torch, "pipelined step (1f1b)",
+                           lambda: ex.step(params, batches[0]), top=12)
+        del ex
     a, b = out["1f1b"], out["bpipe"]
     want = [min(t["p"] - i, t["m"]) for i in range(t["p"])]
     ok_peaks = [a["stats"].peak_local[i] for i in range(t["p"])] == want
@@ -815,9 +870,8 @@ def pipeline_path(torch, dev, smi):
           f"{ok_launches} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the pipelined step's peaks, swaps, losses or launches are wrong")
-    del params, batches
     torch.cuda.empty_cache()
-    return out
+    return out, params, batches
 
 
 def pipeline_checks(torch, dev):
@@ -827,7 +881,6 @@ def pipeline_checks(torch, dev):
     from repro_torch import tree as T
     from repro_torch.core.plan import ScheduleSpec
     from repro_torch.launch import pipeline as launch_pipeline
-    from repro_torch.memory import offload as mem_offload
     from repro_torch.models import model as M
     from repro_torch.pipeline import PipelineExecutor
 
@@ -909,7 +962,35 @@ def pipeline_checks(torch, dev):
     del card, cpu, params, batch, p_cpu, o_cpu, p_card, p_ref, got, want
 
     # a host_offload unit's box between OFFLOAD and FETCH
-    moves = []
+    cfg = serve.config_for(PIPE["arch"], layers=4, attn_impl="flash", reduced=True)
+    params = M.init_params(torch.Generator(dev).manual_seed(6), cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(7)).to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for remat in ("none", "attn"):
+        moves = []
+        spec = ScheduleSpec("1f1b", 4, 4, residency="host_offload")
+        with offload_watched(torch, dev, moves):
+            res = PipelineExecutor(cfg, spec, micro_batch=1, remat=remat).step(params, batch)
+        base = PipelineExecutor(cfg, ScheduleSpec("1f1b", 4, 4), micro_batch=1,
+                                remat=remat).step(params, batch)
+        same = float(res.loss) == float(base.loss) and all(
+            torch.equal(a, b) for a, b in zip(T.leaves(res.grads), T.leaves(base.grads)))
+        ok = same and moves_ok(moves, res.stats.offloads)
+        print(f"[check] host_offload remat={remat}: {res.stats.offloads} units "
+              f"offloaded; (move, box bytes, memory_allocated change, storages, "
+              f"box off the card) {moves}; loss and grads equal to plain 1f1b "
+              f"{same} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"a host_offload unit left tensors on the card (remat={remat})")
+
+
+@contextlib.contextmanager
+def offload_watched(torch, dev, moves):
+    """While open, every OFFLOAD and FETCH of a host_offload unit appends
+    (move, box bytes, memory_allocated change, storages, box off the card)
+    to ``moves``; each move synchronises the card before and after."""
+    from repro_torch.memory import offload as mem_offload
     to_host, to_device = mem_offload.to_host, mem_offload.to_device
 
     def settled():
@@ -934,32 +1015,220 @@ def pipeline_checks(torch, dev):
                       len(stash.box.storages), off))
         return stash
 
-    cfg = serve.config_for(PIPE["arch"], layers=4, attn_impl="flash", reduced=True)
-    params = M.init_params(torch.Generator(dev).manual_seed(6), cfg, dev)
-    toks = torch.randint(0, cfg.vocab_size, (4, 33),
-                         generator=torch.Generator().manual_seed(7)).to(dev)
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     mem_offload.to_host, mem_offload.to_device = host, device
     try:
-        for remat in ("none", "attn"):
-            moves.clear()
-            spec = ScheduleSpec("1f1b", 4, 4, residency="host_offload")
-            res = PipelineExecutor(cfg, spec, micro_batch=1, remat=remat).step(params, batch)
-            base = PipelineExecutor(cfg, ScheduleSpec("1f1b", 4, 4), micro_batch=1,
-                                    remat=remat).step(params, batch)
-            same = float(res.loss) == float(base.loss) and all(
-                torch.equal(a, b) for a, b in zip(T.leaves(res.grads), T.leaves(base.grads)))
-            # each storage's block is its bytes rounded up to 512
-            ok = (same and len(moves) == 2 * res.stats.offloads > 0 and all(
-                off and n > 0 and n <= fell <= n + 512 * k for _, n, fell, k, off in moves))
-            print(f"[check] host_offload remat={remat}: {res.stats.offloads} units "
-                  f"offloaded; (move, box bytes, memory_allocated change, storages, "
-                  f"box off the card) {moves}; loss and grads equal to plain 1f1b "
-                  f"{same} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"a host_offload unit left tensors on the card (remat={remat})")
+        yield
     finally:
         mem_offload.to_host, mem_offload.to_device = to_host, to_device
+
+
+def moves_ok(moves, offloads, fetch_slack=512):
+    """Every unit offloaded was fetched, each move left the box whole off
+    (or back on) the card, and memory_allocated fell (or grew) by the box's
+    bytes: at OFFLOAD each storage's block is its bytes rounded up to 512;
+    at FETCH each new block is up to ``fetch_slack`` longer (the caching
+    allocator hands a storage of over 1 MiB a whole free block when what
+    would be left of it is 1 MiB or less, and counts all of it)."""
+    return len(moves) == 2 * offloads > 0 and all(
+        off and n > 0 and n <= fell <= n + (512 if move == "offload" else fetch_slack) * k
+        for move, n, fell, k, off in moves)
+
+
+def pipelined_run(torch, dev, ex, params, batches, label, smi, tag, moves=None):
+    """Steps of ``ex`` over ``batches``, with the flash counts set to 0
+    just before and read just after, the peak memory and each unit's real
+    saved bytes beside the memory model's (and, unsliced, those measured
+    while units held the bf16 weight copies); prints
+    one line. ``moves`` collects each OFFLOAD and FETCH. Returns the last
+    step's numbers."""
+    import statistics
+
+    from repro_torch import tree as T
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.notation import Notation
+    from repro_torch.core.plan import compile_plan
+    from repro_torch.kernels import flash_attention as fa
+
+    spec, cfg = ex.spec, ex.cfg
+    c = spec.seq_chunks
+    seq = batches[0]["tokens"].shape[1]
+    n = Notation(a=cfg.num_heads, b=ex.b, h=cfg.d_model, l=cfg.num_layers, s=seq,
+                 v=cfg.vocab_size, B=spec.m * ex.b, p=spec.p, t=1)
+    compiled = compile_plan(spec).peak_stash
+    real = []
+    watch = offload_watched(torch, dev, moves) if moves is not None \
+        else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(fa)
+    times, res = [], None
+    with unit_bytes_recorded(real), watch:
+        for batch in batches:
+            del res
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ex.step(params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    counts = counts_read(fa)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(times)
+    st = res.stats
+    tokens = batches[0]["tokens"].numel()
+    modelled = mm.sliced_unit_bytes(n, "flash", 1, c)
+    before = (f", {UNIT_GIB_WITH_COPIES} GiB real with the bf16 weight copies "
+              f"(before cast_matmul)" if c == 1 else "")
+    out = dict(counts=counts, loss=float(res.loss), stats=st, step_ms=1e3 * step_s,
+               peak=peak, compiled=compiled, real=(min(real), max(real)),
+               norms=[float(g.float().norm()) for g in T.leaves(res.grads)])
+    del res
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+          f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
+          f"attn={cfg.attn_impl} {label}: "
+          f"p{spec.p} m{spec.m} x {ex.b} x {seq}, c {c} (slices of {seq // c}): steps "
+          f"{' / '.join(f'{1e3 * t:.2f}' for t in times)} ms, median "
+          f"{1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s; loss "
+          f"{out['loss']:.6f}; peak stash/stage {[st.peak_local[i] for i in range(spec.p)]} "
+          f"(compiled {[compiled[i] for i in range(spec.p)]}), evictions {st.evictions} "
+          f"loads {st.loads} offloads {st.offloads} fetches {st.fetches}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; saved bytes per unit "
+          f"{min(real) / 2**30:.3f}-{max(real) / 2**30:.3f} GiB real over {len(real)} "
+          f"units vs {modelled / 2**30:.4f} GiB modelled (sliced_unit_bytes, flash "
+          f"arm, c {c}){before}; card {smi}")
+    print(f"[{tag}] {label} launches over its {len(batches)} steps: {counts}")
+    return out
+
+
+def sliced_path(torch, dev, smi, params, batches, unsliced):
+    """Phase 12: the sequence-sliced pipelined step on phase 9's model,
+    params and batches, checked against phase 9's unsliced 1f1b step
+    (``unsliced``); the long-context run; one sliced step at a small fp32
+    size on the card against the CPU and against the unsliced step. Returns
+    the flash launch counts of each run by label."""
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.core.plan import ScheduleSpec, compile_plan
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+
+    t = PIPE
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash")
+
+    runs, ok_all = {}, True
+    for kind, c, residency, steps in SLICED_RUNS:
+        spec = ScheduleSpec(kind, t["p"], t["m"], seq_chunks=c, residency=residency)
+        label = f"{kind} c{c}" + (f" {residency}" if residency != "none" else "")
+        ex = PipelineExecutor(cfg, spec, micro_batch=t["micro"], remat="flash")
+        moves = [] if residency == "host_offload" else None
+        r = pipelined_run(torch, dev, ex, params, batches[-steps:], label, smi,
+                          "sliced", moves)
+        st = r["stats"]
+        peaks = [st.peak_local[i] for i in range(t["p"])]
+        want = [r["compiled"][i] for i in range(t["p"])]
+        bounds = compile_plan(spec).bounds
+        # the live store reaches the compiled peaks; under bpipe the dispatch
+        # order may leave an acceptor under its compiled peak, never over it
+        # or over its cap
+        ok_peaks = (peaks == want if kind == "1f1b" else all(
+            p_ <= w and (bounds[i] is None or p_ <= bounds[i])
+            for i, (p_, w) in enumerate(zip(peaks, want))))
+        loss_err = abs(r["loss"] - unsliced["loss"])
+        norm_err = max(abs(a - b) / b for a, b in zip(r["norms"], unsliced["norms"]))
+        want_launches = t["m"] * c * t["layers"] * steps
+        ok_launches = all(v == want_launches for v in r["counts"].values())
+        ok = (ok_peaks and ok_launches and loss_err <= SLICED_LOSS_TOL
+              and norm_err <= SLICED_NORM_RTOL)
+        swaps = ""
+        if kind == "bpipe":
+            ok = ok and st.evictions == st.loads > 0
+            swaps = f"; evictions == loads > 0 {st.evictions == st.loads > 0}"
+        if moves is not None:
+            ok_moves = moves_ok(moves, st.offloads * steps, fetch_slack=2**20)
+            ok = ok and ok_moves
+            swaps = (f"; (move, box bytes, memory_allocated change, storages, box off "
+                     f"the card) {moves}: memory_allocated falls by the box's bytes at "
+                     f"OFFLOAD (and grows by them, up to 1 MiB a storage more, at "
+                     f"FETCH) {ok_moves}")
+        print(f"[check] sliced {label}: peaks {peaks} vs compiled {want} {ok_peaks}; "
+              f"loss {r['loss']:.6f} vs phase 9 unsliced {unsliced['loss']:.6f} (err "
+              f"{loss_err:.3e}, tol {SLICED_LOSS_TOL}); per-leaf grad norms max rel "
+              f"err {norm_err:.3e} (tol {SLICED_NORM_RTOL}); flash launches "
+              f"{want_launches} per kernel {ok_launches}{swaps} {'ok' if ok else 'FAIL'}")
+        ok_all = ok_all and ok
+        runs[label] = r
+        if label == "1f1b c2":  # where the time goes: one more step, profiled
+            profile_window(torch, "sliced pipelined step (1f1b c2)",
+                           lambda: ex.step(params, batches[-1]), top=12)
+        del ex
+    a, b = runs["1f1b c2"], runs["bpipe c2"]
+    same = a["loss"] == b["loss"] and a["norms"] == b["norms"]
+    print(f"[check] sliced 1f1b c2 and bpipe c2 loss and per-leaf grad norms "
+          f"bit-equal {same} {'ok' if same else 'FAIL'}")
+    if not (ok_all and same):
+        fail("the sliced pipelined step's peaks, swaps, moves, losses or launches "
+             "are wrong")
+
+    # the long-context run: 4 x 8192 tokens in 4 slices
+    torch.cuda.empty_cache()
+    dc = DataConfig(batch=t["m"] * t["micro"], seq_len=LONG["seq"])
+    long_batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, dc, i).items()}
+                    for i in range(LONG["steps"])]
+    spec = ScheduleSpec(LONG["kind"], t["p"], t["m"], seq_chunks=LONG["seq_chunks"])
+    label = f"long {LONG['kind']} c{LONG['seq_chunks']} s{LONG['seq']}"
+    ex = PipelineExecutor(cfg, spec, micro_batch=t["micro"], remat="flash")
+    r = pipelined_run(torch, dev, ex, params, long_batches, label, smi, "sliced")
+    peaks = [r["stats"].peak_local[i] for i in range(t["p"])]
+    want = [r["compiled"][i] for i in range(t["p"])]
+    want_launches = t["m"] * LONG["seq_chunks"] * t["layers"] * LONG["steps"]
+    ok = (peaks == want and math.isfinite(r["loss"])
+          and all(math.isfinite(x) for x in r["norms"])
+          and all(v == want_launches for v in r["counts"].values()))
+    print(f"[check] sliced {label}: peaks {peaks} vs compiled {want}; loss "
+          f"{r['loss']:.6f} and grad norms finite; flash launches {want_launches} "
+          f"per kernel {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the long-context sliced step's peaks, loss or launches are wrong")
+    runs[label] = r
+    del ex, long_batches
+    torch.cuda.empty_cache()
+
+    # at a small fp32 size: a sliced step on the card against the same step
+    # on the CPU (phase 10's bars), and against the unsliced step at the
+    # reference's sliced-parity bars (loss 1e-5, grads rtol 1e-3 / atol 1e-5)
+    scfg = serve.config_for(t["arch"], layers=4, attn_impl="flash", reduced=True)
+    sparams = M.init_params(torch.Generator().manual_seed(8), scfg, "cpu")
+    toks = torch.randint(0, scfg.vocab_size, (4, 33),
+                         generator=torch.Generator().manual_seed(9))
+    sbatch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    to = lambda tree, d: T.tree_map(lambda x: x.to(d), tree)  # noqa: E731
+    base = PipelineExecutor(scfg, ScheduleSpec("1f1b", 4, 4)).step(
+        to(sparams, dev), to(sbatch, dev))
+    for kind, c in (("1f1b", 2), ("bpipe", 2), ("1f1b", 4)):
+        ex = PipelineExecutor(scfg, ScheduleSpec(kind, 4, 4, seq_chunks=c))
+        got = ex.step(to(sparams, dev), to(sbatch, dev))
+        want = ex.step(sparams, sbatch)
+        pairs = list(zip(T.leaves(got.grads), T.leaves(want.grads)))
+        cpu_loss = abs(float(got.loss) - float(want.loss))
+        cpu_err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        ok_cpu = cpu_loss <= 1e-5 and all(
+            bool(((a.cpu() - b).abs() <= 2e-4 + 1e-3 * b.abs()).all()) for a, b in pairs)
+        pairs = list(zip(T.leaves(got.grads), T.leaves(base.grads)))
+        un_loss = abs(float(got.loss) - float(base.loss))
+        un_err = max(float((a - b).abs().max()) for a, b in pairs)
+        ok_un = un_loss <= 1e-5 and all(
+            bool(((a - b).abs() <= 1e-5 + 1e-3 * b.abs()).all()) for a, b in pairs)
+        ok = ok_cpu and ok_un
+        print(f"[check] sliced {kind} c{c} fp32 {scfg.num_layers} layers d{scfg.d_model} "
+              f"on the card: vs the CPU loss err {cpu_loss:.3e} (tol 1e-5), grads "
+              f"max_abs_err {cpu_err:.3e} (tol 2e-4 + 1e-3|want|) {ok_cpu}; vs the "
+              f"unsliced 1f1b step loss err {un_loss:.3e} (tol 1e-5), grads max_abs_err "
+              f"{un_err:.3e} (tol 1e-5 + 1e-3|want|) {ok_un} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the sliced {kind} c{c} step on the card disagrees with the CPU or "
+                 f"with the unsliced step")
+    return {label: r["counts"] for label, r in runs.items()}
 
 
 def d2h_rate(torch):
@@ -1083,7 +1352,8 @@ def audit_phase(torch, dev, smi):
               f"{mm.sliced_unit_bytes(n, 'none', 1, 1) / 2**30:.3f} GiB (arm none, the "
               f"executor's accounting at remat none) and "
               f"{mm.sliced_unit_bytes(n, 'flash', 1, 1) / 2**30:.3f} GiB (arm flash, "
-              f"the attention it runs); launches {counts}")
+              f"the attention it runs); {UNIT_GIB_WITH_COPIES} GiB real with the bf16 "
+              f"weight copies (before cast_matmul); launches {counts}")
         want = 2 * t["m"] * t["layers"]
         ok = (not rep.missing_in_real and not rep.missing_in_sim
               and math.isfinite(rep.time_scale) and rep.time_scale > 0
@@ -1245,6 +1515,9 @@ def main():
     cases.append(dict(b=1, sq=2048, sk=2048, nq=104, nkv=104, hd=96,
                       dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
                       name="gpt3-96b hd 96"))
+    cases += [dict(b=b, sq=sq, sk=sk, nq=nq, nkv=nkv, hd=hd, dtype="bfloat16",
+                   window=0, softcap=0.0, q_offset=off, name="sliced full width")
+              for b, sq, sk, nq, nkv, hd, off in SLICED]
     max_err = 0.0
     for c in cases:
         q, k, v = qkv(c["b"], c["sq"], c["sk"], c["nq"], c["nkv"], c["hd"],
@@ -1278,7 +1551,8 @@ def main():
                       window=w, softcap=c, q_offset=0, name="bwd sweep")
                  for b, s, nq, nkv, hd, dt, w, c in BWD_SWEEP]
     bwd_cases += [dict(c, name="fwd sweep") for c in cases if c["name"] == "sweep"]
-    bwd_cases += [c for c in cases if c["name"] in ("q_offset", "strided", "sm90")]
+    bwd_cases += [c for c in cases if c["name"] in ("q_offset", "strided", "sm90",
+                                                    "sliced full width")]
     bwd_cases.append(dict(b=1, sq=2048, sk=2048, nq=64, nkv=64, hd=128,
                           dtype="bfloat16", window=0, softcap=0.0, q_offset=0,
                           name="llama-65b training shape"))
@@ -1366,6 +1640,8 @@ def main():
           f"sdpa backward (dq, dk, dv together) {bwd_library_ms:.4f} ms; card {smi}")
     del q, k, v, do, out, lse, delta, qt, kt, vt, ot
     torch.cuda.empty_cache()
+    # the three kernels at the sequence-sliced path's full-width shapes
+    sliced_times = sliced_kernel_times(torch, F, fa, ref, qkv, gen, dev, smi)
 
     # -- 4. the main path ------------------------------------------------------------
     cfg = serve.config_for(MAIN["arch"], layers=MAIN["layers"], attn_impl="flash")
@@ -1456,7 +1732,12 @@ def main():
     fs_rows = fused_softmax_phase(torch, dev, gen, smi)
 
     # -- 9. the pipelined step at full width ---------------------------------------------
-    pipe = pipeline_path(torch, dev, smi)
+    pipe, params, batches = pipeline_path(torch, dev, smi)
+
+    # -- 12. the sequence-sliced pipelined step, on phase 9's params and batches ----------
+    sliced_counts = sliced_path(torch, dev, smi, params, batches, pipe["1f1b"])
+    del params, batches
+    torch.cuda.empty_cache()
 
     # -- 10. is the pipelined path right ---------------------------------------------------
     pipeline_checks(torch, dev)
@@ -1467,7 +1748,15 @@ def main():
     def by_path(name):
         return {"serve": serve_counts.get(name, 0), "train": train_counts.get(name, 0),
                 **{f"pipeline {kind}": arm["counts"][name] for kind, arm in pipe.items()},
+                **{f"sliced pipeline {label}": c[name]
+                   for label, c in sliced_counts.items()},
                 **{path: c[name] for path, c in estimate_counts.items()}}
+
+    def launches(name):  # this slice's main path: the sliced pipelined step
+        return sum(c[name] for c in sliced_counts.values())
+
+    def at_sliced_shapes(name):
+        return [{"shape": row["shape"], **row[name]} for row in sliced_times]
 
     print(json.dumps({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -1475,8 +1764,9 @@ def main():
          "fp32_source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
          "sass": sass.get("flash_attention_fwd_sm90"),
          "replaces": "src/repro/kernels/flash_attention.py:31",
-         "launches": sum(arm["counts"]["flash_attention_fwd"] for arm in pipe.values()),
+         "launches": launches("flash_attention_fwd"),
          "launches_by_path": by_path("flash_attention_fwd"),
+         "at_sliced_shapes": at_sliced_shapes("flash_attention_fwd"),
          "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
     ] + [
@@ -1485,8 +1775,9 @@ def main():
          **({"fp32_source": f"src/repro_torch/kernels/csrc/{name}.cu",
              "sass": sass.get(source)} if source != name else {}),
          "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-         "launches": sum(arm["counts"][name] for arm in pipe.values()),
+         "launches": launches(name),
          "launches_by_path": by_path(name),
+         "at_sliced_shapes": at_sliced_shapes(name),
          "max_abs_err": bwd_err[name], "ms": bwd_ms_by[name],
          "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": bwd_library_ms,

@@ -20,6 +20,11 @@ before anything reads the tensors. ``record_stream`` keeps each device
 source from being reused before its copy is done. A box on the CPU stays
 where it is (the copy would be a no-op, as ``device_put`` to the host is on
 a CPU-only JAX runtime).
+
+A sequence slice's own KV is packed into its unit's box too (``Box.pack``
+outside the hooks), so it moves with the box, and ``Box.read`` gives it
+back on the card wherever the box is: a later slice's prefix reads it while
+the unit is on the host.
 """
 from __future__ import annotations
 
@@ -67,6 +72,17 @@ class Box:
         st = self.storages[i]
         return torch.empty(0, dtype=dtype, device=st.device).set_(
             st, offset, size, stride)
+
+    def read(self, packed) -> torch.Tensor:
+        """A packed tensor on the card it was packed on: when OFFLOAD has
+        moved the box to the host, a copy back, made once that move is done
+        (the compute stream waits for the box's event first). The executor
+        reads a slice's retained KV this way."""
+        t = self.unpack(packed)
+        if self.moved and t.device.type == "cpu":
+            torch.cuda.current_stream(self.home).wait_event(self.event)
+            t = t.to(self.home, non_blocking=True)
+        return t
 
     def hooks(self):
         """The saved-tensor hooks a forward runs under to fill this box."""

@@ -4,7 +4,9 @@ Two implementations of full-sequence attention, as in the JAX twin:
   * ``reference`` — plain einsum attention (``_sdpa``),
   * ``flash``     — the flash-attention kernel (``kernels/ops``): the CUDA
     kernel on a card, its plain PyTorch version on the CPU.
-Decode always takes ``_sdpa`` over the KV cache.
+Decode always takes ``_sdpa`` over the KV cache. ``attention_sliced`` runs
+one sequence slice over the retained KV of the slices before it
+(sequence-sliced pipeline schedules).
 
 The KV cache is updated in place (``update_kv_cache``/``fill_kv_cache``
 write into the cache's tensors and return the same dict), so a stacked
@@ -15,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.models.layers import (_winit, apply_norm, init_norm, rope,
-                                       scalar, softcap)
+from repro_torch.models.layers import (_winit, apply_norm, cast_matmul,
+                                       init_norm, rope, scalar, softcap)
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -40,9 +42,22 @@ def init_attention(gen, cfg, device):
     return p
 
 
+def _heads(x, w):
+    """The einsum "bsd,dnh->bsnh" of x with a (d, n, h) weight, as one
+    ``cast_matmul``."""
+    d, n, h = w.shape
+    return cast_matmul(x, w.reshape(d, n * h)).unflatten(-1, (n, h))
+
+
+def _merge_heads(out, w):
+    """The einsum "bsnh,nhd->bsd" of the heads with an (n, h, d) weight."""
+    n, h, d = w.shape
+    return cast_matmul(out.flatten(-2), w.reshape(n * h, d))
+
+
 def _project_q(p, x, cfg, positions):
     dt = x.dtype
-    q = torch.einsum("bsd,dnh->bsnh", x, p["wq"].to(dt))
+    q = _heads(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(dt)
     if "qnorm" in p:
@@ -54,8 +69,8 @@ def _project_q(p, x, cfg, positions):
 
 def _project_kv(p, x, cfg, positions):
     dt = x.dtype
-    k = torch.einsum("bsd,dnh->bsnh", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", x, p["wv"].to(dt))
+    k = _heads(x, p["wk"])
+    v = _heads(x, p["wv"])
     if "bk" in p:
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
@@ -93,10 +108,10 @@ def _sdpa(q, k, v, cfg, q_pos, k_pos, *, window):
     return out.reshape(b, sq, nq, hd)
 
 
-def _flash(q, k, v, cfg, *, window):
+def _flash(q, k, v, cfg, *, window, q_offset=0):
     from repro_torch.kernels import ops
     return ops.flash_attention(q, k, v, causal=True, window=window or 0,
-                               softcap=cfg.attn_softcap)
+                               softcap=cfg.attn_softcap, q_offset=q_offset)
 
 
 def attention(p, x, cfg, positions, *, kind):
@@ -112,8 +127,36 @@ def attention(p, x, cfg, positions, *, kind):
         out = _flash(q, k, v, cfg, window=window)
     else:
         out = _sdpa(q, k, v, cfg, positions, positions, window=window)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
-    return out, (k, v)
+    return _merge_heads(out, p["wo"]), (k, v)
+
+
+def attention_sliced(p, x, cfg, positions, kv_prefix, *, kind):
+    """Self attention for ONE sequence slice over a retained-KV prefix.
+
+    x: (b, L, d), the slice's tokens at global ``positions`` (contiguous,
+    starting at the prefix length P). kv_prefix: (k, v), each (b, P, nkv,
+    hd), the post-RoPE keys and values of all earlier slices (P = 0 for
+    slice 0). The slice attends causally over prefix + itself; the prefix
+    covers positions [0, P), so the key positions are arange(P + L).
+
+    Returns (out, (k_own, v_own)): the slice's own post-RoPE KV, which the
+    executor keeps for later slices' prefixes.
+    """
+    q = _project_q(p, x, cfg, positions)
+    k_own, v_own = _project_kv(p, x, cfg, positions)
+    pk, pv = kv_prefix
+    dt = x.dtype
+    k = torch.cat([pk.to(dt), k_own], dim=1)
+    v = torch.cat([pv.to(dt), v_own], dim=1)
+    window = cfg.window_size if kind == "local_attn" else 0
+    if cfg.attn_impl == "flash":
+        out = _flash(q, k, v, cfg, window=window, q_offset=int(pk.shape[1]))
+    else:
+        b, total_k = k.shape[0], k.shape[1]
+        k_pos = torch.arange(total_k, dtype=torch.int32,
+                             device=x.device)[None].expand(b, total_k)
+        out = _sdpa(q, k, v, cfg, positions, k_pos, window=window)
+    return _merge_heads(out, p["wo"]), (k_own, v_own)
 
 
 # ---------------------------------------------------------------------------

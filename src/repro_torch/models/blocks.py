@@ -67,6 +67,43 @@ def _apply_mixer(p, x, cfg, kind, positions, *, remat):
     return f(p, x)
 
 
+#: Mixer kinds that can run sequence slices (seq_chunks > 1): causal
+#: attention over a retained-KV prefix. The recurrent kinds carry state
+#: across the sequence that a slice boundary would cut.
+SLICEABLE_KINDS = (ATTN, LOCAL)
+
+
+def apply_layer_sliced(p, x, cfg, kind, positions, kv_prefix, *,
+                       remat="none"):
+    """One layer over ONE sequence slice with a retained-KV prefix.
+
+    Returns (x, aux_loss, (k, v)): the slice's own post-RoPE KV, which the
+    pipeline executor keeps for later slices. Only attention mixers
+    (``SLICEABLE_KINDS``) can slice; cross-attention layers cannot (the
+    encoder states span the whole sequence).
+    """
+    if kind not in SLICEABLE_KINDS:
+        raise ValueError(
+            f"seq_chunks > 1 needs attention mixers, got {kind!r}")
+    if "cross" in p:
+        raise ValueError("seq_chunks > 1 does not support cross-attention")
+    _check_supported(cfg, kind)
+
+    def mix(p_, x_, pk, pv):
+        return attn_mod.attention_sliced(p_, x_, cfg, positions, (pk, pv),
+                                         kind=kind)
+
+    if remat == "attn":
+        h, kv = checkpoint(mix, p["mixer"], apply_norm(p["norm1"], x),
+                           *kv_prefix, use_reentrant=False)
+    else:
+        h, kv = mix(p["mixer"], apply_norm(p["norm1"], x), *kv_prefix)
+    x = x + h
+    if "ffn" in p:
+        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
+    return x, 0.0, kv
+
+
 def apply_layer(p, x, cfg, kind, positions, *, remat="none"):
     """Forward layer. Returns (x, aux_loss); aux is 0 for a dense FFN."""
     _check_supported(cfg, kind)

@@ -4,17 +4,60 @@ Params are nested dicts of tensors with the JAX package's keys and
 layouts; every layer is ``init_*(gen, cfg, device) -> params`` +
 ``apply(params, x, ...) -> y``. The ``device`` of an init has no default:
 the public entry points (``model.init_params``) choose it. Params are stored fp32 and cast to the
-compute dtype on read; norms and softmax run in fp32.
+compute dtype on read; norms and softmax run in fp32. Every weight product
+goes through ``cast_matmul``, which saves the fp32 weight for the backward
+and casts it again there, so no compute-dtype copy of a weight is held
+between a forward and its backward.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 
 def cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+class _CastMatmul(torch.autograd.Function):
+    """``x @ w.to(x.dtype)`` as matmul folds it (x to rows, one ``mm``),
+    saving ``w`` itself for the backward. The backward casts ``w`` again
+    and runs the ``mm`` backward that autograd runs for the product (which
+    takes grad_w transposed when the cast weight is column-major), then
+    casts grad_w to ``w``'s dtype as the cast's own backward does: the same
+    values, without the cast copy among the saved tensors."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        rows = x.reshape(-1, x.shape[-1])
+        return rows.mm(w.to(x.dtype)).view(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wc = w.to(x.dtype)
+        rows = x.reshape(-1, x.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = g2.mm(wc.t()).view(x.shape)
+        if ctx.needs_input_grad[1]:
+            if wc.stride(0) == 1 and wc.stride(1) == wc.shape[0]:
+                gw = g2.t().mm(rows).t()
+            else:
+                gw = rows.t().mm(g2)
+            gw = gw.to(w.dtype)
+        return gx, gw
+
+
+def cast_matmul(x, w):
+    """``x @ w.to(x.dtype)`` for x (..., k) and a 2-D weight w (k, n),
+    whose backward saves the fp32 ``w`` rather than its compute-dtype copy."""
+    return _CastMatmul.apply(x, w)
 
 
 def softcap(x, cap: float):
@@ -95,12 +138,11 @@ def init_mlp(gen, cfg, device):
 
 
 def apply_mlp(params, x, cfg):
-    dt = x.dtype
     if "wg" in params:  # swiglu
-        h = F.silu(x @ params["wi"].to(dt)) * (x @ params["wg"].to(dt))
+        h = F.silu(cast_matmul(x, params["wi"])) * cast_matmul(x, params["wg"])
     else:  # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ params["wi"].to(dt), approximate="tanh")
-    return h @ params["wo"].to(dt)
+        h = F.gelu(cast_matmul(x, params["wi"]), approximate="tanh")
+    return cast_matmul(h, params["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +167,7 @@ def embed(params, tokens, cfg):
 
 def unembed(params, x, cfg):
     if cfg.tie_embeddings:
-        logits = x @ params["table"].to(x.dtype).T
+        logits = cast_matmul(x, params["table"].T)
     else:
-        logits = x @ params["unembed"].to(x.dtype)
+        logits = cast_matmul(x, params["unembed"])
     return softcap(logits.float(), cfg.final_softcap)

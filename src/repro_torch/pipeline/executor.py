@@ -28,8 +28,18 @@ residency the boundary input (the carry) is kept beside it.
 
 Interleaved kinds give each device v model chunks: chunk c on device s is
 virtual stage ``c*p + s`` and every stash / routing key is (stage, mb,
-chunk). Sequence-sliced schedules (``seq_chunks`` > 1) are not ported yet
-(ROADMAP A8).
+chunk).
+
+Sequence-sliced schedules (``ScheduleSpec.seq_chunks`` = c > 1) split every
+microbatch into c sequence slices: each F runs one slice through
+``make_sliced_stage_fn``, reading the retained KV of all earlier slices
+through ``store.peek`` (wherever a residency policy put them). A slice's
+own KV is packed into its unit's box, so it travels with the box. Its
+prefix enters the forward as detached leaves, so the slice's graph ends
+there and B reads the prefix's grads from them; the graph keeps an edge
+(``torch.autograd.graph.get_gradient_edge``) to each of the slice's own
+k and v, so B can feed them the grads the later slices' backwards (run
+first: B goes in reverse slice order) emitted for them.
 
 Numerical contract (tested against the JAX executor and against
 ``models.model.loss_fn``): for any schedule kind,
@@ -54,6 +64,8 @@ from repro_torch.core.schedule import B, F
 from repro_torch.memory import offload as mem_offload
 from repro_torch.memory import policy as respol
 from repro_torch.memory.store import ActivationStore, StoreStats
+from repro_torch.models import blocks as blocks_mod
+from repro_torch.models.layers import cdtype
 from repro_torch.obs.events import Recorder, Span
 from repro_torch.pipeline import stage as stage_mod
 from repro_torch.transfer.channel import channel_key
@@ -74,10 +86,28 @@ class StepResult:
 class Graph:
     """One stash unit: the stage's outputs (the autograd graph hangs off
     them), the leaves its backward differentiates to (the stage's params,
-    then the carry's) and the box of saved tensors."""
+    then the carry's, then a slice's KV prefix) and the box of saved
+    tensors. A slice's unit also holds its own KV, one (k, v) pair per
+    layer, packed into the box (``kv``), and the autograd edges of those
+    tensors (``kv_edges``), which take their grads in B."""
     out: Tuple[torch.Tensor, ...]
     leaves: List[torch.Tensor]
     box: mem_offload.Box
+    kv: Tuple[Any, ...] = ()
+    kv_edges: Tuple[Any, ...] = ()
+
+    def kv_own(self):
+        return tuple((self.box.read(k), self.box.read(v)) for k, v in self.kv)
+
+
+def _kv_own_of(entry):
+    """A slice's own KV from its stash entry, wherever the unit lives: a
+    Graph, a live recompute entry (Graph, carry), or a dropped one
+    (carry, kv_own)."""
+    if isinstance(entry, Graph):
+        return entry.kv_own()
+    head, tail = entry
+    return head.kv_own() if isinstance(head, Graph) else tail
 
 
 def _add(a, b):
@@ -98,10 +128,6 @@ class PipelineExecutor:
 
     def __init__(self, cfg: ModelConfig, spec: P.ScheduleSpec,
                  micro_batch: int = 1, remat: str = "none"):
-        if spec.seq_chunks > 1:
-            raise NotImplementedError(
-                "sequence-sliced schedules (seq_chunks > 1) are not ported "
-                "yet (ROADMAP A8)")
         self.spec = spec
         self.cfg, self.p, self.kind = cfg, spec.p, spec.kind
         self.v = spec.v
@@ -111,7 +137,15 @@ class PipelineExecutor:
         self.b = micro_batch
         self.remat = remat
         self.cap = spec.resolved_cap
-        self.stage_fns = [stage_mod.make_stage_fn(cfg, self.n_virtual, vs, remat)
+        self.c = spec.seq_chunks
+        if self.c > 1:
+            bad = set(cfg.layer_kinds()) - set(blocks_mod.SLICEABLE_KINDS)
+            assert not bad, \
+                f"seq_chunks>1 needs attention mixers, got {sorted(bad)}"
+            make = stage_mod.make_sliced_stage_fn
+        else:
+            make = stage_mod.make_stage_fn
+        self.stage_fns = [make(cfg, self.n_virtual, vs, remat)
                           for vs in range(self.n_virtual)]
         self.splitter = stage_mod.StageSplitter(cfg, self.n_virtual)
 
@@ -135,13 +169,25 @@ class PipelineExecutor:
         attention = {"none": "none", "attn": "recompute", "full": "recompute",
                      "flash": "flash"}.get(self.remat, "none")
         policy = self.spec.policy
+        c = self.c
+        sliced = c > 1
+        if sliced:
+            assert seq % c == 0, f"seq {seq} not divisible by seq_chunks {c}"
+        Ls = seq // c
         # One stash unit's bytes: the same v-chunk weighting
         # memory_model.act_bytes_per_stage charges, so the reported
-        # peak_bytes/bytes_moved agree with the model's per-stage numbers.
-        unit_bytes = mm.sliced_unit_bytes(n, attention, self.v, 1)
-        store = ActivationStore(p, unit_bytes,
-                                retained_bytes=policy.retained_bytes(
-                                    n, attention, self.v))
+        # peak_bytes/bytes_moved agree with the model's per-stage numbers
+        # (a sliced unit holds 1/c of the stage stash plus its KV prefix).
+        unit_bytes = mm.sliced_unit_bytes(n, attention, self.v, c)
+        retained = policy.retained_bytes(n, attention, self.v)
+        if sliced:
+            # a released slice retains 1/c of the policy's bytes, plus its
+            # own KV under recompute (DROP keeps (carry, kv_own) so later
+            # slices' forwards still reach the prefix)
+            retained = retained / c
+            if policy.mechanism == "recompute":
+                retained += mm.kv_bytes_per_slice(n, self.v, c)
+        store = ActivationStore(p, unit_bytes, retained_bytes=retained)
         is_recompute = policy.mechanism == "recompute"
         swap_ops = frozenset(
             op for op, pol in {**respol.RELEASE_OPS,
@@ -181,17 +227,73 @@ class PipelineExecutor:
             [None] * len(leaves) for leaves in stage_leaves]
         scale = torch.tensor(1.0 / m, dtype=torch.float32, device=dev)
 
-        def forward(vs, mb, carry):
-            """Stage ``vs`` on microbatch ``mb`` from ``carry`` (() for
-            stage 0), its saved tensors boxed. Returns (output, Graph)."""
+        if sliced:
+            # Per-(mb, slice) inputs: the slice's token window plus its
+            # global start position (the stage fn derives positions and
+            # the causal mask against the retained-KV prefix from it).
+            micros_sl = {
+                (j, s): {**{k: val[:, s * Ls:(s + 1) * Ls]
+                            for k, val in micros[j].items()},
+                         "offset": s * Ls}
+                for j in range(m) for s in range(c)}
+            # The sliced last stage returns nll sums that are not
+            # normalised; the whole microbatch's count of valid tokens
+            # normalises them, so the slices' losses sum to the unsliced one.
+            cnt = [(micros[j]["labels"] >= 0).float().sum().clamp_min(1.0)
+                   for j in range(m)]
+            kv_zero = [tuple((torch.zeros((self.b, 0, cfg.num_kv_heads,
+                                           cfg.head_dim), dtype=cdtype(cfg),
+                                          device=dev),) * 2
+                             for _ in self.splitter.assign[vs])
+                       for vs in range(nv)]
+            # (vs, mb, sl) -> pending dKV cotangent: the prefix grads the
+            # LATER slices' backwards (which run first, in reverse slice
+            # order) have emitted for slice sl's own KV.
+            dkv_acc: Dict[Tuple[int, int, int], Any] = {}
+
+        def kv_prefix_for(i, vs, mb, chunk, sl):
+            """Concatenate the earlier slices' retained KV (slice order is
+            position order), read through ``store.peek``, so the prefix is
+            reached wherever a residency policy moved the earlier units
+            (partner store, host, dropped)."""
+            if sl == 0:
+                return kv_zero[vs]
+            parts = [_kv_own_of(store.peek(i, mb, chunk, j)) for j in range(sl)]
+            return tuple(
+                (torch.cat([part[li][0] for part in parts], dim=1),
+                 torch.cat([part[li][1] for part in parts], dim=1))
+                for li in range(len(kv_zero[vs])))
+
+        def forward(i, ins, carry):
+            """Stage ``ins.vs`` on microbatch ``ins.mb`` (slice ``ins.sl``)
+            from ``carry`` (() for stage 0), its saved tensors boxed.
+            Returns (output, Graph)."""
+            vs = ins.vs
             inputs = [t.detach().requires_grad_(True) for t in carry]
-            leaves = list(stage_leaves[vs]) + inputs
-            box = mem_offload.Box(keep=leaves + list(micros[mb].values()))
+            prefix = [] if not sliced else [
+                t.detach().requires_grad_(True) for kv in
+                kv_prefix_for(i, vs, ins.mb, ins.chunk, ins.sl) for t in kv]
+            leaves = list(stage_leaves[vs]) + inputs + prefix
+            micro = micros_sl[(ins.mb, ins.sl)] if sliced else micros[ins.mb]
+            box = mem_offload.Box(keep=leaves + [
+                t for t in micro.values() if isinstance(t, torch.Tensor)])
+            kv, edges = (), ()
             with torch.enable_grad(), box.hooks():
-                out = self.stage_fns[vs](stage_params[vs], tuple(inputs),
-                                         micros[mb])
+                if sliced:
+                    out, kv_own = self.stage_fns[vs](
+                        stage_params[vs], tuple(inputs),
+                        tuple(zip(prefix[0::2], prefix[1::2])), micro)
+                    # the KV goes into the box as the forward fills it, so
+                    # the box's bytes count it and it moves with the box
+                    kv = tuple((box.pack(k), box.pack(v)) for k, v in kv_own)
+                    edges = tuple(torch.autograd.graph.get_gradient_edge(t)
+                                  for pair in kv_own for t in pair)
+                    del kv_own
+                else:
+                    out = self.stage_fns[vs](stage_params[vs], tuple(inputs),
+                                             micro)
             outs = out if isinstance(out, tuple) else (out,)
-            return out, Graph(outs, leaves, box)
+            return out, Graph(outs, leaves, box, kv, edges)
 
         def wrap(body):
             """Shared post-instruction bookkeeping: span emission through
@@ -222,42 +324,62 @@ class PipelineExecutor:
             return handler
 
         def on_f(i, ins):
-            vs = ins.vs
+            vs, sl = ins.vs, ins.sl
             # pop: the boundary activation has exactly one consumer
-            carry = () if vs == 0 else act_in.pop((vs, ins.mb, ins.sl), None)
+            carry = () if vs == 0 else act_in.pop((vs, ins.mb, sl), None)
             if carry is None:
                 return P.BLOCKED
-            out, graph = forward(vs, ins.mb, carry)
+            out, graph = forward(i, ins, carry)
             # recompute residency keeps the boundary input alongside the
             # graph: DROP strips to it, RECOMPUTE re-forwards from it
             store.put(i, ins.mb, (graph, carry) if is_recompute else graph,
-                      ins.chunk)
+                      ins.chunk, sl)
             if vs == nv - 1:
-                losses[(ins.mb, 0)] = out.detach()
+                losses[(ins.mb, sl)] = (out[0].detach() / cnt[ins.mb]
+                                        + out[1].detach()) if sliced \
+                    else out.detach()
             else:
-                act_in[(vs + 1, ins.mb, 0)] = tuple(t.detach() for t in out)
+                act_in[(vs + 1, ins.mb, sl)] = tuple(t.detach() for t in out)
             return out
 
         def on_b(i, ins):
-            vs = ins.vs
+            vs, sl = ins.vs, ins.sl
             if vs == nv - 1:
-                cot = (scale,)
+                cot = (scale / cnt[ins.mb], scale) if sliced else (scale,)
             else:
-                cot = grad_in.pop((vs, ins.mb, ins.sl), None)
+                cot = grad_in.pop((vs, ins.mb, sl), None)
                 if cot is None:
                     return P.BLOCKED
-            entry = store.pop(i, ins.mb, ins.chunk, ins.sl)
+            entry = store.pop(i, ins.mb, ins.chunk, sl)
             graph = entry[0] if is_recompute else entry
             live = [(o, g) for o, g in zip(graph.out, cot) if o.requires_grad]
+            if sliced:
+                # dKV for this slice's own KV: what the LATER slices'
+                # backwards (already run) emitted; the newest slice has none
+                cot_kv = dkv_acc.pop((vs, ins.mb, sl), None)
+                if cot_kv is not None:
+                    live += zip(graph.kv_edges,
+                                [g for kv in cot_kv for g in kv])
             got = torch.autograd.grad([o for o, _ in live], graph.leaves,
                                       grad_outputs=[g for _, g in live],
                                       allow_unused=True)
             k = len(stage_leaves[vs])
             grads[vs] = [_add(a, g) for a, g in zip(grads[vs], got[:k])]
+            # the carry's grads, then the KV prefix's
+            rest = [torch.zeros_like(t) if g is None else g
+                    for t, g in zip(graph.leaves[k:], got[k:])]
+            n_in = len(rest) - 2 * len(graph.kv)
             if vs > 0:
-                grad_in[(vs - 1, ins.mb, ins.sl)] = tuple(
-                    torch.zeros_like(t) if g is None else g
-                    for t, g in zip(graph.leaves[k:], got[k:]))
+                grad_in[(vs - 1, ins.mb, sl)] = tuple(rest[:n_in])
+            if sliced:
+                d_kvp = rest[n_in:]
+                for j in range(sl):      # scatter the prefix grads back
+                    seg = tuple(g[:, j * Ls:(j + 1) * Ls] for g in d_kvp)
+                    prev = dkv_acc.get((vs, ins.mb, j))
+                    seg = tuple(zip(seg[0::2], seg[1::2]))
+                    dkv_acc[(vs, ins.mb, j)] = seg if prev is None else tuple(
+                        (pk + dk, pv + dv)
+                        for (pk, pv), (dk, dv) in zip(prev, seg))
             return got
 
         # Every move handler follows the compiled ISSUE/WAIT contract: the
@@ -286,15 +408,19 @@ class PipelineExecutor:
             if ins.is_wait:
                 return None
             # free the graph and its box, keep the boundary input the
-            # re-forward starts from
-            store.drop(i, ins.mb, ins.chunk, ins.sl, strip=lambda e: e[1])
+            # re-forward starts from, plus, under slicing, the slice's own
+            # KV (later slices peek at it)
+            strip = (lambda e: (e[1], e[0].kv_own())) if sliced \
+                else (lambda e: e[1])
+            store.drop(i, ins.mb, ins.chunk, ins.sl, strip=strip)
 
         def on_recompute(i, ins):
             if ins.is_wait:
                 return None
-            carry = store.dropped_input(i, ins.mb, ins.chunk, ins.sl)
-            out, graph = forward(ins.vs, ins.mb, carry)
-            store.recompute(i, ins.mb, (graph, carry), ins.chunk)
+            kept = store.dropped_input(i, ins.mb, ins.chunk, ins.sl)
+            carry = kept[0] if sliced else kept
+            out, graph = forward(i, ins, carry)
+            store.recompute(i, ins.mb, (graph, carry), ins.chunk, ins.sl)
             return out
 
         # Handlers by registered policy mechanism: a plugin policy's ops

@@ -24,7 +24,8 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import PatternStack, _rows, apply_layer
+from repro_torch.models.blocks import (PatternStack, _rows, apply_layer,
+                                      apply_layer_sliced)
 from repro_torch.models.layers import apply_norm, embed, unembed
 
 
@@ -150,7 +151,53 @@ def make_stage_fn(cfg: ModelConfig, p: int, stage: int, remat: str = "none"):
 
 def make_sliced_stage_fn(cfg: ModelConfig, p: int, stage: int,
                          remat: str = "none"):
-    """The sequence-sliced stage forward (``ScheduleSpec.seq_chunks`` > 1)."""
-    raise NotImplementedError(
-        "sequence-sliced stages (seq_chunks > 1) are not ported yet "
-        "(ROADMAP A8)")
+    """The sequence-sliced stage forward (``ScheduleSpec.seq_chunks`` > 1).
+    Returns
+
+        f(sp, carry, kv_prefix, batch) -> (primary, kv_own)
+
+    where ``batch`` holds this slice's tokens and labels plus ``"offset"``
+    (the slice's global start position, an int), ``kv_prefix`` is one
+    (k, v) pair per local layer covering global positions [0, offset)
+    (zero-length for slice 0), and ``kv_own`` is the slice's own post-RoPE
+    KV, one pair per local layer, which the executor keeps for later slices.
+
+    ``primary`` is (activation, aux) on interior stages and (nll_sum, aux)
+    on the last stage: the nll sum is NOT normalised; the executor divides
+    it by the microbatch's count of valid tokens, so the slices' losses sum
+    to the unsliced stage loss.
+    """
+    assign = layer_assignment(cfg, p)
+    kinds = cfg.layer_kinds()
+    layers = assign[stage]
+    first, last = stage == 0, stage == p - 1
+
+    def fn(sp, carry, kv_prefix, batch):
+        if first:
+            x = embed(sp["embed"], batch["tokens"], cfg)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            x, aux = carry
+        b, s = x.shape[:2]
+        positions = (int(batch["offset"]) + torch.arange(
+            s, dtype=torch.int32, device=x.device))[None].expand(b, s)
+        kv_own = []
+        for local, ℓ in enumerate(layers):
+            x, a, kv = apply_layer_sliced(
+                sp["layers"][local], x, cfg, kinds[ℓ], positions,
+                kv_prefix[local], remat=remat)
+            aux = aux + a
+            kv_own.append(kv)
+        kv_own = tuple(kv_own)
+        if not last:
+            return (x, aux), kv_own
+        x = apply_norm(sp["final_norm"], x)
+        logits = unembed(sp["unembed"], x, cfg)
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        lbl = labels.clamp_min(0).long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, lbl[..., None])[..., 0]
+        return ((nll * mask).sum(), aux), kv_own
+
+    return fn

@@ -58,10 +58,11 @@ def _one_trace_per_jax_stage():
     """One JAX trace per (cfg, stages, stage, remat) across the executors
     built here (as ``tests/test_torch_executor.py``)."""
     from repro.pipeline import stage as jstage
-    plain = jstage.make_stage_fn
+    plain, sliced = jstage.make_stage_fn, jstage.make_sliced_stage_fn
     jstage.make_stage_fn = functools.lru_cache(maxsize=None)(plain)
+    jstage.make_sliced_stage_fn = functools.lru_cache(maxsize=None)(sliced)
     yield
-    jstage.make_stage_fn = plain
+    jstage.make_stage_fn, jstage.make_sliced_stage_fn = plain, sliced
 
 
 _SETUP = {}
@@ -94,14 +95,15 @@ def _specs(kind, p=4, m=4, **kw):
 _TRACES = {}
 
 
-def _port_trace(kind="bpipe", residency="none"):
+def _port_trace(kind="bpipe", residency="none", seq_chunks=1):
     """The port executor's traced step of ``kind`` (p 4, m 4)."""
-    if (kind, residency) not in _TRACES:
+    key = (kind, residency, seq_chunks)
+    if key not in _TRACES:
         d = _setup()
-        _, ts = _specs(kind, residency=residency)
-        _TRACES[kind, residency] = PipelineExecutor(d["tc"], ts).step(
+        _, ts = _specs(kind, residency=residency, seq_chunks=seq_chunks)
+        _TRACES[key] = PipelineExecutor(d["tc"], ts).step(
             d["tp"], d["tb"], trace=True).events
-    return _TRACES[kind, residency]
+    return _TRACES[key]
 
 
 def _to_jax(spans):
@@ -116,14 +118,15 @@ def _tuples(spans):
 # ---------------------------------------------------------------------------
 # The executor's trace and options against the JAX executor
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("kind,residency", [
-    ("1f1b", "none"), ("bpipe", "none"), ("1f1b", "host_offload"),
-    ("1f1b", "selective_recompute")])
-def test_traced_span_keys_equal_jax_executor(kind, residency):
+@pytest.mark.parametrize("kind,residency,c", [
+    ("1f1b", "none", 1), ("bpipe", "none", 1), ("1f1b", "host_offload", 1),
+    ("1f1b", "selective_recompute", 1), ("1f1b", "none", 2),
+    ("bpipe", "none", 2)])
+def test_traced_span_keys_equal_jax_executor(kind, residency, c):
     d = _setup()
-    js, _ = _specs(kind, residency=residency)
+    js, _ = _specs(kind, residency=residency, seq_chunks=c)
     want = JExecutor(d["jc"], spec=js).step(d["jp"], d["jb"], trace=True)
-    got = _port_trace(kind, residency)
+    got = _port_trace(kind, residency, c)
     for track in ("compute", "channel"):
         assert sorted((s.key, s.channel) for s in got if s.track == track) \
             == sorted((s.key, s.channel) for s in want.events
@@ -160,6 +163,20 @@ def test_fit_trace_equals_reference(kind, residency, v, b, c):
     assert dataclasses.astuple(got) == dataclasses.astuple(want)
     assert got.t_move == want.t_move
     assert got.Tf > 0 and got.Tb > 0 and got.samples == len(spans)
+
+
+@pytest.mark.parametrize("kind,residency", [
+    ("1f1b", "none"), ("bpipe", "none"), ("1f1b", "selective_recompute")])
+def test_fit_trace_on_a_sliced_port_trace(kind, residency):
+    """``launch.plan --trace-c`` reads a sliced trace through
+    ``fit_trace(seq_chunks=c)``: on a traced c 2 step of the port's
+    executor, the copy gives the reference's costs."""
+    spans = _port_trace(kind, residency, 2)
+    assert {s.sl for s in spans if s.op in ("F", "B")} == {0, 1}
+    got = TCAL.fit_trace(spans, seq_chunks=2)
+    want = JCAL.fit_trace(_to_jax(spans), seq_chunks=2)
+    assert dataclasses.astuple(got) == dataclasses.astuple(want)
+    assert got.Tf > 0 and got.Tb > 0
 
 
 COSTS = dict(Tf=1.5e-3, Tb=3.25e-3, t_evict=2e-4, t_load=3e-4, v=1, b=2,
@@ -203,13 +220,25 @@ def test_trace_cost_model_equals_reference(traced):
     assert tm.peak_per_chip == jm.peak_per_chip == 989e12
 
 
+def _round_tripped(spans):
+    """What a saved trace promises to give back: every structured field
+    exactly, and the times as the reference's own round-trip test holds
+    them (``tests/test_obs.py``: 6 decimals). The file stores microseconds,
+    so start * 1e6 / 1e6 need not return start's last bits."""
+    return [(s.key, round(s.start, 6), round(s.duration, 6), s.track,
+             s.channel, s.hbm) for s in spans]
+
+
 def test_chrome_trace_aliases_round_trip_into_the_reference(tmp_path):
     spans = _port_trace("bpipe")
     assert TCAL.chrome_trace(spans) == JCAL.chrome_trace(_to_jax(spans))
     path = str(tmp_path / "port.json")
     TCAL.save_chrome_trace(spans, path)
-    assert _tuples(JCAL.load_chrome_trace(path)) == _tuples(spans)
-    assert _tuples(TCAL.load_chrome_trace(path)) == _tuples(spans)
+    port, ref = TCAL.load_chrome_trace(path), JCAL.load_chrome_trace(path)
+    # the port's loader and the reference's read the same file to the bit
+    assert _tuples(port) == _tuples(ref)
+    assert _round_tripped(port) == _round_tripped(spans)
+    assert _round_tripped(ref) == _round_tripped(spans)
 
 
 # ---------------------------------------------------------------------------

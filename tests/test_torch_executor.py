@@ -1,7 +1,8 @@
 """The port's pipeline executor on the CPU: its own contract (loss and grads
 equal the full model's ``loss_fn``, live stash peaks equal the schedule
 model's), and a differential against the JAX package's executor over the
-unsliced schedule specs of ``tests/test_differential.py``.
+schedule specs of ``tests/test_differential.py``, the sequence-sliced ones
+included.
 
 Reduced qwen1.5-0.5b (tied embeddings), 4 layers, fp32, as
 ``tests/test_executor.py``. Params come from ``repro.models.model.init_params``
@@ -56,10 +57,11 @@ def _one_trace_per_jax_stage():
     reuse one trace and one compilation across the specs. The functions,
     and so the reference's results, are the same."""
     from repro.pipeline import stage as jstage
-    plain = jstage.make_stage_fn
+    plain, sliced = jstage.make_stage_fn, jstage.make_sliced_stage_fn
     jstage.make_stage_fn = functools.lru_cache(maxsize=None)(plain)
+    jstage.make_sliced_stage_fn = functools.lru_cache(maxsize=None)(sliced)
     yield
-    jstage.make_stage_fn = plain
+    jstage.make_stage_fn, jstage.make_sliced_stage_fn = plain, sliced
 
 
 def _cfgs(layers=4):
@@ -147,12 +149,6 @@ def test_split_shares_storage_and_merge_restacks():
         params["blocks"]["pos0"]["mixer"]["wq"].shape
 
 
-def test_sliced_schedules_raise():
-    _, tc, *_ = _setup()
-    with pytest.raises(NotImplementedError, match="A8"):
-        PipelineExecutor(tc, TP.ScheduleSpec("1f1b", 4, 0, seq_chunks=2))
-
-
 # ---------------------------------------------------------------------------
 # Differential against the JAX executor
 # ---------------------------------------------------------------------------
@@ -165,12 +161,16 @@ def _compiles(spec):
 
 
 def _exec_specs():
-    """``tests/test_differential.py::_exec_specs`` built the same way, less
-    its sequence-sliced variants (not ported yet): the kind x residency x
-    cap x depth cross section a 4-layer model executes (p*v <= 4, m=4)."""
+    """``tests/test_differential.py::_exec_specs`` built the same way: the
+    kind x residency x cap x depth cross section a 4-layer model executes
+    (p*v <= 4, m=4), plus the sequence-sliced variants (c divides the
+    batch's seq 8; sliced specs stay at the default cap)."""
     out = []
-    for kind, p, v in (("gpipe", 2, 1), ("1f1b", 4, 1), ("bpipe", 4, 1),
-                       ("1f1b_interleaved", 2, 2), ("bpipe_interleaved", 2, 2)):
+    for kind, p, v, c in (("gpipe", 2, 1, 1), ("1f1b", 4, 1, 1),
+                          ("bpipe", 4, 1, 1), ("1f1b_interleaved", 2, 2, 1),
+                          ("bpipe_interleaved", 2, 2, 1), ("gpipe", 2, 1, 2),
+                          ("1f1b", 4, 1, 2), ("bpipe", 4, 1, 2),
+                          ("1f1b", 2, 1, 4)):
         entry = JS.SCHEDULES[kind]
         residencies = ("none",) if entry.balanced else RESIDENCIES
         for res in residencies:
@@ -181,13 +181,14 @@ def _exec_specs():
             elif pol.active:
                 default = pol.default_cap(p, v)
             for cap_delta in (0, -1):
-                if cap_delta and not managed:
+                if cap_delta and (not managed or c > 1):
                     continue
                 cap = None if not cap_delta else max(default + cap_delta, 2)
                 for depth in (1, 2):
                     try:
                         spec = JP.ScheduleSpec(kind, p, 4, v=v, cap=cap,
-                                               residency=res, depth=depth)
+                                               residency=res, depth=depth,
+                                               seq_chunks=c)
                     except ValueError:
                         continue
                     if _compiles(spec) and spec not in out:
@@ -210,9 +211,10 @@ def _diff_setup():
 
 
 def test_exec_specs_cover_the_cross_section():
-    assert len(EXEC_SPECS) == 26
+    assert len(EXEC_SPECS) == 40
     assert {s.kind for s in EXEC_SPECS} == {
         "gpipe", "1f1b", "bpipe", "1f1b_interleaved", "bpipe_interleaved"}
+    assert sum(s.seq_chunks > 1 for s in EXEC_SPECS) == 14
 
 
 @pytest.mark.parametrize("spec", EXEC_SPECS, ids=lambda s: s.label())
@@ -228,6 +230,39 @@ def test_port_matches_jax_executor(spec):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=GRAD_ATOL,
                                    rtol=GRAD_RTOL)
     assert dataclasses.asdict(got.stats) == dataclasses.asdict(want.stats)
+
+
+SLICED_SPECS = [s for s in EXEC_SPECS if s.seq_chunks > 1]
+_PORT_STEPS = {}
+
+
+def _port_step(spec):
+    d = _diff_setup()
+    if spec not in _PORT_STEPS:
+        _PORT_STEPS[spec] = PipelineExecutor(
+            d["tc"], TP.ScheduleSpec.from_dict(spec.to_dict()),
+            micro_batch=1).step(d["tp"], d["tb"])
+    return _PORT_STEPS[spec]
+
+
+@pytest.mark.parametrize("spec", SLICED_SPECS, ids=lambda s: s.label())
+def test_port_sliced_matches_unchunked(spec):
+    """The port's sliced step computes its unchunked twin's training step
+    (``tests/test_differential.py::test_executor_sliced_parity_vs_unchunked``
+    and its bars: loss 1e-5, grads rtol 1e-3 / atol 1e-5), and its
+    residency moves change nothing: it equals the same slicing without a
+    residency policy or partner swaps bit for bit."""
+    kind = {"bpipe": "1f1b"}.get(spec.kind, spec.kind)
+    got = _port_step(spec)
+    twin = _port_step(JP.ScheduleSpec(kind, spec.p, spec.m, v=spec.v))
+    assert abs(float(got.loss) - float(twin.loss)) < 1e-5
+    for a, b in zip(T.leaves(got.grads), T.leaves(twin.grads)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-5)
+    plain = _port_step(JP.ScheduleSpec(kind, spec.p, spec.m, v=spec.v,
+                                       seq_chunks=spec.seq_chunks))
+    assert torch.equal(got.loss, plain.loss)
+    for a, b in zip(T.leaves(got.grads), T.leaves(plain.grads)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -278,6 +313,46 @@ def test_remat_attn_host_offload_moves_every_saved_tensor(monkeypatch):
     assert res.stats.offloads == res.stats.fetches > 0
     assert moved_boxes and all(b.storages for b in moved_boxes)
     assert unpacked and all(unpacked)
+    assert torch.equal(res.loss, base.loss)
+    for a, b in zip(T.leaves(res.grads), T.leaves(base.grads)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat", ["none", "attn"])
+def test_sliced_host_offload_moves_the_slice_kv(monkeypatch, remat):
+    """A slice's own KV is packed into its unit's box, so OFFLOAD moves it
+    with the saved tensors and a later slice's prefix reads the moved copy.
+    The mover copies each storage and poisons the original with NaN bytes:
+    the sliced host_offload step must equal plain sliced 1f1b bit for bit,
+    and every offloaded unit's KV must be in its box (packed, not held)."""
+    _, tc, p, _ = _setup()
+    params = bridge.to_torch(p, device="cpu")
+    toks = np.random.default_rng(5).integers(0, tc.vocab_size, (4, 17))
+    tb = _torch_batch({"tokens": toks[:, :-1].astype(np.int32),
+                       "labels": toks[:, 1:].astype(np.int32)})
+    moved = []
+
+    def move(stash):
+        box = stash.box
+        for i, st in enumerate(box.storages):
+            src = torch.empty(0, dtype=torch.uint8).set_(st)
+            dst = src.clone()
+            src.fill_(0xFF)                      # NaN in every float dtype
+            box.storages[i] = dst.untyped_storage()
+        moved.append(stash)
+        return stash
+
+    monkeypatch.setattr(mem_offload, "to_host", move)
+    monkeypatch.setattr(mem_offload, "to_device", move)
+    spec = TP.ScheduleSpec("1f1b", 4, 4, residency="host_offload", seq_chunks=2)
+    res = PipelineExecutor(tc, spec, remat=remat).step(params, tb)
+    monkeypatch.undo()
+    base = PipelineExecutor(tc, TP.ScheduleSpec("1f1b", 4, 4, seq_chunks=2),
+                            remat=remat).step(params, tb)
+    assert res.stats.offloads == res.stats.fetches > 0
+    assert moved and all(g.kv and all(not isinstance(t, torch.Tensor)
+                                      for kv in g.kv for t in kv)
+                         for g in moved)
     assert torch.equal(res.loss, base.loss)
     for a, b in zip(T.leaves(res.grads), T.leaves(base.grads)):
         assert torch.equal(a, b)

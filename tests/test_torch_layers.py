@@ -115,3 +115,70 @@ def test_softcap_and_cdtype():
     _, tc = _cfgs("llama-65b")
     assert TL.cdtype(tc) == torch.float32
     assert TL.cdtype(tget_config("llama-65b")) == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# cast_matmul: the product that saves the fp32 weight, not its cast copy
+# ---------------------------------------------------------------------------
+def _weight(kind):
+    """A fp32 leaf and the 2-D weight the layers hand cast_matmul: a matrix,
+    a (d, n, h) projection flattened to (d, n*h), and a tied table taken
+    transposed (column-major)."""
+    if kind == "matrix":
+        w = torch.from_numpy(_x(32, 48)).requires_grad_(True)
+        return w, w
+    if kind == "heads":
+        w = torch.from_numpy(_x(32, 4, 12)).requires_grad_(True)
+        return w, w.reshape(32, 48)
+    w = torch.from_numpy(_x(48, 32)).requires_grad_(True)
+    return w, w.T
+
+
+@pytest.mark.parametrize("kind", ["matrix", "heads", "tied"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cast_matmul_is_bit_equal_to_cast_then_matmul(dtype, kind):
+    """Forward, grad_x and grad_w equal ``x @ w.to(dtype)`` through
+    autograd bit for bit."""
+    leaf, w = _weight(kind)
+    x0 = torch.from_numpy(_x(3, 5, 32)).to(dtype)
+    g = torch.from_numpy(_x(3, 5, 48)).to(dtype)
+    outs = []
+    for f in (lambda x: TL.cast_matmul(x, w), lambda x: x @ w.to(dtype)):
+        x = x0.clone().requires_grad_(True)
+        y = f(x)
+        outs.append((y, *torch.autograd.grad(y, (x, leaf), g, retain_graph=True)))
+    (y, gx, gw), (wy, wgx, wgw) = outs
+    assert y.dtype == dtype and gw.dtype == torch.float32
+    for a, b in ((y, wy), (gx, wgx), (gw, wgw)):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_cast_matmul_saves_no_weight_copy():
+    """A bf16 stage unit's box holds the activations the backward reads but
+    no bf16 copy of any weight: the fp32 weights are the step's own (kept,
+    not boxed). The box of the same forward through ``x @ w.to(bf16)``
+    holds each weight's copy as well."""
+    from repro_torch.memory.offload import Box
+    cfg = dataclasses.replace(tget_config("llama-65b").reduced(),
+                              dtype="bfloat16")
+    p = TL.init_mlp(torch.Generator().manual_seed(0), cfg, "cpu")
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    x = torch.from_numpy(_x(2, 8, cfg.d_model)).to(torch.bfloat16)
+    x.requires_grad_(True)  # a stage's input activation, as in the executor
+    copies = sum(w.numel() * 2 for w in p.values())
+
+    def plain(params, x_):
+        dt = x_.dtype
+        h = torch.nn.functional.silu(x_ @ params["wi"].to(dt)) * (
+            x_ @ params["wg"].to(dt))
+        return h @ params["wo"].to(dt)
+
+    boxes = []
+    for f in (lambda q, x_: TL.apply_mlp(q, x_, cfg), plain):
+        box = Box(keep=list(p.values()) + [x])
+        with torch.enable_grad(), box.hooks():
+            y = f(p, x)
+        boxes.append((box, y))
+    (box, y), (plain_box, plain_y) = boxes
+    assert torch.equal(y, plain_y)
+    assert plain_box.nbytes() - box.nbytes() == copies
