@@ -79,7 +79,25 @@ Phases, each fatal on failure:
      paper's A100 gain; ``audit`` of the pipelined step (``AUDIT``, 1f1b
      and bpipe: time scale, op skews, order divergence, each unit's real
      saved bytes beside the memory model's); ``launch.pipeline --plan
-     auto`` at full width (``AUTO``); each path's flash launch counts.
+     auto`` at full width (``AUTO``); each path's flash launch counts;
+ 13. the other families: the flash kernels at head_dim 256 (``HD256``:
+     recurrentgemma-2b's local layer at s 2048 and 4096, gemma2-9b's) in
+     bf16 and fp32, and at the families' own bf16 shapes (``FAMILY_ATTN``:
+     granite-moe-1b-a400m's attention at b 4, forward and backward, and
+     recurrentgemma-2b's serve prefill at b 4, forward), against their plain
+     versions, twice bit-equal, the first shape timed beside SDPA and the
+     bound; then, for granite-moe-1b-a400m
+     (full width and depth) and recurrentgemma-2b (full width; 26 layers
+     served, 9 trained and pipelined), ``FAMILIES``: ``launch.train`` (5
+     steps, Adam), the pipelined step (1f1b and bpipe, 3 steps each) and
+     ``serve`` (b 4, prompt 2048, 16 new tokens): step ms, tokens/s, MFU
+     over the active parameters, peak memory, stash peaks against the
+     compiled plan's, swaps, flash launch counts, and a profile of each
+     split into GEMMs, flash, elementwise work and the RG-LRU scan and MoE
+     dispatch and combine ranges; checks 1f1b == bpipe losses bit for bit,
+     finite losses, the peaks, the launches, and each family at a small
+     fp32 size on the card against the CPU (loss, grads, serve logits and
+     tokens).
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -186,6 +204,34 @@ AUDIT = dict(arch="llama-65b", layers=4, p=4, micro=1, m=4, seq=2048)
 # --plan auto trains with Adam: at PIPE's depth its moments (28 GiB) and the
 # launcher's copy of the params do not fit beside the stash, so 2 layers, p 2
 AUTO = dict(arch="llama-65b", layers=2, stages=2, batch=4, seq=2048, steps=2)
+# phase 13, the other families. The flash kernels at head_dim 256: b, s, nq,
+# nkv, hd, window, softcap, label (causal). The first is timed.
+HD256 = [(1, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b local layer"),
+         (1, 4096, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b, the window cuts"),
+         (1, 2048, 16, 8, 256, 4096, 50.0, "gemma2-9b layer")]
+# the shapes the families' main paths give the kernels beside HD256's, in
+# bf16, their compute dtype: b, s, nq, nkv, hd, window, softcap, label,
+# backward too (causal). Granite trains and serves at b 4 (its pipelined
+# microbatches are b 1 of the same instance); recurrentgemma serves at b 4,
+# forward only, and trains at HD256's first shape.
+FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serve", True),
+               (4, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b serve prefill", False)]
+# Each family's paths: train (launch.train, Adam), the pipelined step
+# (PipelineExecutor, 1f1b and bpipe, remat "flash", no Adam) and serve.
+# granite-moe-1b-a400m at full width and depth. recurrentgemma-2b at full
+# width: serving at all 26 layers; training and the pipelined step at 9
+# (three pattern blocks): with Adam, params, grads and moments of 26 layers
+# come to about 46 GiB before activations and the 2048 x 256000 logits.
+FAMILIES = [
+    dict(arch="granite-moe-1b-a400m",
+         train=dict(layers=24, batch=4, seq=2048, steps=5),
+         pipe=dict(layers=24, p=4, micro=1, m=4, seq=2048, steps=3),
+         serve=dict(layers=24, batch=4, prompt=2048, gen=16)),
+    dict(arch="recurrentgemma-2b",
+         train=dict(layers=9, batch=1, seq=2048, steps=5),
+         pipe=dict(layers=9, p=3, micro=1, m=4, seq=2048, steps=3),
+         serve=dict(layers=26, batch=4, prompt=2048, gen=16)),
+]
 
 
 def fail(msg):
@@ -427,10 +473,21 @@ PROFILE_KINDS = [
 ]
 
 
+# the port's profiler ranges -> the parts of a step they time (device time
+# of the kernels inside, forward range and backward node)
+PROFILE_RANGES = [
+    ("RG-LRU scan", ("rglru_scan", "_LinearScanBackward")),
+    ("MoE dispatch", ("moe_dispatch", "IndexPutBackward0")),
+    ("MoE combine", ("moe_combine", "IndexSelectBackward0")),
+]
+
+
 def profile_window(torch, label, fn, top=8):
     """Run ``fn`` under torch.profiler and print the device-time breakdown:
     the kernels' summed device time against the window's wall time (the
-    device's busy share), and the top kernels by device time."""
+    device's busy share), the top kernels by device time, and the device
+    time inside each of ``PROFILE_RANGES`` (those kernels are counted in
+    their kinds as well)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -438,8 +495,12 @@ def profile_window(torch, label, fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the port's own ranges show on the device timeline as annotations too:
+    # they are not kernels
+    ranges = {k for _, keys in PROFILE_RANGES for k in keys}
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %)")
@@ -455,6 +516,20 @@ def profile_window(torch, label, fn, top=8):
     print(f"[profile] {label} by kind: " + ", ".join(
         f"{k} {v / 1e3:.3f} ms ({100 * v / max(busy_us, 1):.1f} %)"
         for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+    events = prof.key_averages()
+    parts = []
+    for name, keys in PROFILE_RANGES:
+        # a backward node shows as "autograd::engine::evaluate_function: X"
+        # around "X": take the larger of the two, not both
+        # (the host-side event: its device time is its kernels', where the
+        # device-side annotation of the same name spans the gaps too)
+        us = [max([e.device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and (e.key == k or e.key.endswith(": " + k))] + [0.0])
+              for k in keys]
+        parts.append(f"{name} {sum(us) / 1e3:.3f} ms ({100 * sum(us) / max(busy_us, 1):.1f} "
+                     f"%; forward {us[0] / 1e3:.3f}, backward {us[1] / 1e3:.3f})")
+    print(f"[profile] {label} ranges (inside the kinds above): " + ", ".join(parts))
 
 
 def counts_zero(fa):
@@ -477,6 +552,33 @@ def counts_read(fa):
     return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
             "flash_attention_dq": fa.flash_attention_bwd.dq_launches,
             "flash_attention_dkv": fa.flash_attention_bwd.dkv_launches}
+
+
+def attn_keys(cfg, seq):
+    """The keys a query sees at most in each attention layer of ``cfg``:
+    ``seq``, or min(seq, window) on a LOCAL layer. One entry an attention
+    layer, so its length is each flash kernel's launches a pass."""
+    from repro_torch.configs.base import ATTN, LOCAL
+    return [min(seq, cfg.window_size) if kind == LOCAL and cfg.window_size else seq
+            for kind in cfg.layer_kinds() if kind in (ATTN, LOCAL)]
+
+
+def n_active(cfg):
+    """The parameters a token's products use, as ``core.flops.model_flops_6nd``
+    counts them."""
+    from repro_torch.core.flops import model_flops_6nd
+    return round(model_flops_6nd(cfg, 1, 1) / 6)
+
+
+def model_flops(cfg, seq, tokens):
+    """(6 N_active + 6 sum(attn_keys) d) tokens."""
+    return (6 * n_active(cfg) + 6 * sum(attn_keys(cfg, seq)) * cfg.d_model) * tokens
+
+
+MFU_FORMULA = ("(6 N_active + 6 sum over attention layers of min(s, window) d) "
+               "tokens / step time / 989e12, N_active as core/flops.model_flops_6nd: "
+               "param_count() less the experts a token's router does not pick "
+               "(E - top_k a MoE layer) and the embedding table, the unembedding kept")
 
 
 def train_path(torch, dev, smi):
@@ -504,18 +606,15 @@ def train_path(torch, dev, smi):
               f"{st['grad_norm']:.6f} lr {st['lr']:.3e} {st['s'] * 1e3:.2f} ms")
     step_s = sorted(st["s"] for st in steps[2:5])[1]
     tokens = t["batch"] * t["seq"]
-    n = cfg.param_count()
-    flops = (6 * n + 6 * cfg.num_layers * t["seq"] * cfg.d_model) * tokens
-    mfu = flops / step_s / H100_PEAK_BF16
+    mfu = model_flops(cfg, t["seq"], tokens) / step_s / H100_PEAK_BF16
     total = torch.cuda.get_device_properties(0).total_memory
     print(f"[train] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
           f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
           f"attn={cfg.attn_impl}: b{t['batch']} x {t['seq']}, {t['steps']} steps; "
           f"step {step_s * 1e3:.2f} ms (median of steps 3-5), "
           f"{tokens / step_s:.1f} tokens/s, MFU {100 * mfu:.2f} % "
-          f"(= (6 N + 6 L s d) tokens / step time / 989e12, N {n}, L "
-          f"{cfg.num_layers}, s {t['seq']}, d {cfg.d_model}, tokens {tokens}); "
-          f"peak memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; "
+          f"(= {MFU_FORMULA}; N_active {n_active(cfg)} of {cfg.param_count()}, "
+          f"tokens {tokens}); peak memory {peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; "
           f"card {smi}")
     print(f"[train] launches over the run: {counts}")
     want = cfg.num_layers * t["steps"]
@@ -838,8 +937,10 @@ def pipeline_path(torch, dev, smi):
     for kind in ("1f1b", "bpipe"):
         ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
                               micro_batch=t["micro"], remat="flash")
-        out[kind] = pipelined_run(torch, dev, ex, params, batches, kind, smi,
-                                  tag="pipeline")
+        out[kind] = pipelined_run(
+            torch, dev, ex, params, batches, kind, smi, tag="pipeline",
+            note=f", {UNIT_GIB_WITH_COPIES} GiB real with the bf16 weight copies "
+                 f"(before cast_matmul)")
         if kind == "1f1b":  # where the time goes: one more step, profiled
             profile_window(torch, "pipelined step (1f1b)",
                            lambda: ex.step(params, batches[0]), top=12)
@@ -1034,12 +1135,12 @@ def moves_ok(moves, offloads, fetch_slack=512):
         for move, n, fell, k, off in moves)
 
 
-def pipelined_run(torch, dev, ex, params, batches, label, smi, tag, moves=None):
+def pipelined_run(torch, dev, ex, params, batches, label, smi, tag, moves=None,
+                  note=""):
     """Steps of ``ex`` over ``batches``, with the flash counts set to 0
     just before and read just after, the peak memory and each unit's real
-    saved bytes beside the memory model's (and, unsliced, those measured
-    while units held the bf16 weight copies); prints
-    one line. ``moves`` collects each OFFLOAD and FETCH. Returns the last
+    saved bytes beside the memory model's; prints one line, ending in
+    ``note``. ``moves`` collects each OFFLOAD and FETCH. Returns the last
     step's numbers."""
     import statistics
 
@@ -1077,8 +1178,6 @@ def pipelined_run(torch, dev, ex, params, batches, label, smi, tag, moves=None):
     st = res.stats
     tokens = batches[0]["tokens"].numel()
     modelled = mm.sliced_unit_bytes(n, "flash", 1, c)
-    before = (f", {UNIT_GIB_WITH_COPIES} GiB real with the bf16 weight copies "
-              f"(before cast_matmul)" if c == 1 else "")
     out = dict(counts=counts, loss=float(res.loss), stats=st, step_ms=1e3 * step_s,
                peak=peak, compiled=compiled, real=(min(real), max(real)),
                norms=[float(g.float().norm()) for g in T.leaves(res.grads)])
@@ -1095,7 +1194,7 @@ def pipelined_run(torch, dev, ex, params, batches, label, smi, tag, moves=None):
           f"max_memory_allocated {peak / 2**30:.2f} GiB; saved bytes per unit "
           f"{min(real) / 2**30:.3f}-{max(real) / 2**30:.3f} GiB real over {len(real)} "
           f"units vs {modelled / 2**30:.4f} GiB modelled (sliced_unit_bytes, flash "
-          f"arm, c {c}){before}; card {smi}")
+          f"arm, c {c}){note}; card {smi}")
     print(f"[{tag}] {label} launches over its {len(batches)} steps: {counts}")
     return out
 
@@ -1417,6 +1516,377 @@ def estimation_phase(torch, dev, smi):
     counts.update(audit_phase(torch, dev, smi))
     counts.update(plan_auto_phase(torch, dev, smi))
     return counts
+
+# ---------------------------------------------------------------------------
+# Phase 13: the other families (MoE, RG-LRU hybrid) and head_dim 256
+# ---------------------------------------------------------------------------
+def bf16_ulp(torch, w):
+    """One bf16 ulp at |w| (8 significant bits): 2**(floor(log2 |w|) - 7)."""
+    return torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def grad_agree_ulp(torch, got, want, dtype):
+    """``grad_agree``, but a bf16 element's flat 2.5e-2 cap is raised to one
+    bf16 ulp of |want| where that is larger (|want| >= 4: the ulp is 2**-5
+    there and 2**-4 from 8). Two bf16 roundings of the same fp32 sum taken in
+    another order can differ by one ulp, so no kernel could hold 2.5e-2
+    there; the element bound G_RTOL |want| + G_ATOL max|want| stays. At
+    head_dim 256 with 10 query heads a kv head, dK and dV sum 10 x 2048
+    rows and reach |want| > 4. Returns (max abs error, ok, the count of
+    elements past 2.5e-2)."""
+    if dtype != "bfloat16":
+        return (*grad_agree(torch, got, want, dtype), 0)
+    g, w = got.float(), want.float()
+    e = (g - w).abs()
+    cap = torch.clamp_min(bf16_ulp(torch, w), 2.5e-2)
+    ok = (bool(torch.isfinite(got).all()) and bool((e <= cap).all())
+          and bool((e <= G_RTOL * w.abs() + G_ATOL * w.abs().max()).all()))
+    return float(e.max()), ok, int((e > 2.5e-2).sum())
+
+
+def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
+    """The three flash kernels at head_dim 256 (``HD256``, bf16 and fp32)
+    and at the families' own bf16 shapes (``FAMILY_ATTN``) against their
+    plain versions, each run twice bit-equal, then HD256's first shape
+    timed (forward by CUDA events, dq and dk/dv by the profiler's device
+    time per launch) beside the plain versions, SDPA forward and backward
+    (the window does not cut at s 2048, so causal SDPA computes the same
+    function; K/V expanded to the query heads before the clock) and the
+    bound. Returns (the timed row by kernel, max errors)."""
+    errs = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
+            "flash_attention_dkv": 0.0}
+    cases = ([(*c, ("bfloat16", "float32"), True) for c in HD256]
+             + [(*c[:-1], ("bfloat16",), c[-1]) for c in FAMILY_ATTN])
+    for b, s, nq, nkv, hd, w, cap, label, dtypes, backward in cases:
+        for dtype in dtypes:
+            q, k, v = qkv(b, s, s, nq, nkv, hd, dtype)
+            do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+            kw = dict(causal=True, window=w, softcap=cap)
+            out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            again = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+            got = got2 = want = ()
+            if backward:
+                got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                got2 = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            torch.cuda.synchronize()
+            same = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+                    and all(torch.equal(a, b_) for a, b_ in zip(got, got2)))
+            want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            o_err, lse_err, ok = agree(torch, out, want_out, lse, want_lse, dtype)
+            if backward:
+                want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
+            gerr = [grad_agree_ulp(torch, g_, w_, dtype) for g_, w_ in zip(got, want)]
+            ok = ok and same and all(e[1] for e in gerr)
+            bf16 = dtype == "bfloat16"
+            text = (f"O {o_err:.3e} LSE {lse_err:.3e} (within "
+                    + (f"{O_ATOL} + {O_RTOL}|O|, LSE {LSE_TOL})" if bf16
+                       else f"{tol(dtype)})"))
+            if backward:
+                text += (f", dq {gerr[0][0]:.3e} dk {gerr[1][0]:.3e} dv "
+                         f"{gerr[2][0]:.3e} (within "
+                         + (f"{G_RTOL}|want| + {G_ATOL} max|want| and max(2.5e-2, "
+                            f"one bf16 ulp of |want|); elements past 2.5e-2: dq "
+                            f"{gerr[0][2]} dk {gerr[1][2]} dv {gerr[2][2]})" if bf16
+                            else f"{G_ATOL32} + {G_RTOL32}|want|)"))
+            else:
+                text += ", forward only"
+            print(f"[check] head_dim {hd} {label}: b{b} s{s} {nq}/{nkv}x{hd} {dtype} "
+                  f"w{w} cap{cap} route {fa.route(q.dtype)}: max_abs_err {text}; "
+                  f"two runs bit-equal {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"a flash kernel disagrees with its plain version at head_dim "
+                     f"{hd}: {label} {dtype}")
+            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], o_err, lse_err)
+            if backward:
+                errs["flash_attention_dq"] = max(errs["flash_attention_dq"], gerr[0][0])
+                errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"],
+                                                  gerr[1][0], gerr[2][0])
+            del q, k, v, do, out, lse, again, got, got2, want_out, want_lse, want
+            torch.cuda.empty_cache()
+
+    b, s, nq, nkv, hd, w, cap, label = HD256[0]
+    q, k, v = qkv(b, s, s, nq, nkv, hd, "bfloat16")
+    do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+    kw = dict(causal=True, window=w, softcap=cap)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    fwd_bound = attention_bound(q, k, v, out, lse, causal=True, window=w)
+    bounds = bwd_bounds(q, k, v, lse, causal=True, window=w)
+    fwd_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw), 10)
+    fwd_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3,
+                        warmup=1)
+    split = kernel_device_ms(
+        torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+        ["flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"])
+    delta = ref.flash_attention_delta(out, do, lse)
+    plain = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do, **kw), 3,
+                           warmup=1)
+             for name, f in (("flash_attention_dq", ref.flash_attention_dq_ref),
+                             ("flash_attention_dkv", ref.flash_attention_dkv_ref))}
+    kx, vx = (t.repeat_interleave(nq // nkv, dim=2) for t in (k, v))
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, kx, vx))
+    sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), 10)
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), 10)
+    shape = f"b{b} s{s} {nq}/{nkv}x{hd} w{w} ({label})"
+    row = {"flash_attention_fwd": dict(ms=fwd_ms, plain_ms=fwd_plain,
+                                       bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                                       library_ms=sdpa_ms)}
+    for name, kname in (("flash_attention_dq", "flash_dq_sm90_kernel"),
+                        ("flash_attention_dkv", "flash_dkv_sm90_kernel")):
+        row[name] = dict(ms=split[kname], plain_ms=plain[name],
+                         bound_ms=bounds[name][0], bound_by=bounds[name][1],
+                         library_ms=sdpa_bwd_ms)
+    for name, r in row.items():
+        r.update(shape=shape, max_abs_err=errs[name])
+        print(f"[time] {name} head_dim 256 {shape} bf16: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), sdpa causal "
+              f"{'forward' if name == 'flash_attention_fwd' else 'backward (dq, dk, dv together)'} "
+              f"{r['library_ms']:.4f} ms; card {smi}")
+    del q, k, v, do, out, lse, delta, kx, vx, qt, kt, vt, ot
+    torch.cuda.empty_cache()
+    return row, errs
+
+
+def family_train(torch, dev, smi, fam):
+    """The launcher's training loop (Adam) on one family; returns its flash
+    launch counts."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.h100 import H100_PEAK_BF16
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.steps import make_train_step
+
+    t = fam["train"]
+    argv = ["--arch", fam["arch"], "--layers", str(t["layers"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--steps", str(t["steps"]),
+            "--log-every", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero(fa)
+    res = launch_train.main(argv)
+    counts = counts_read(fa)
+    peak = torch.cuda.max_memory_allocated()
+    cfg, steps = res["cfg"], res["steps"]
+    step_s = sorted(st["s"] for st in steps[2:5])[1]
+    tokens = t["batch"] * t["seq"]
+    mfu = model_flops(cfg, t["seq"], tokens) / step_s / H100_PEAK_BF16
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[family train] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} {cfg.dtype} "
+          f"attn={cfg.attn_impl}: b{t['batch']} x {t['seq']}, {t['steps']} steps; "
+          f"losses {[round(st['loss'], 6) for st in steps]}; step "
+          f"{step_s * 1e3:.2f} ms (median of steps 3-5), {tokens / step_s:.1f} "
+          f"tokens/s, MFU {100 * mfu:.2f} % (= {MFU_FORMULA}; N_active "
+          f"{n_active(cfg)} of {cfg.param_count()}); peak memory "
+          f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; card {smi}")
+    print(f"[family train] {cfg.name} launches over the run: {counts}")
+    want = len(attn_keys(cfg, 1)) * t["steps"]
+    if any(v != want for v in counts.values()):
+        fail(f"{cfg.name} training launched {counts}, want {want} of each kernel")
+    if not all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+               for st in steps):
+        fail(f"a {cfg.name} training loss or grad norm is not finite")
+    if peak >= total:
+        fail(f"peak memory {peak} is not under the card's {total}")
+    tcfg = dataclasses.replace(TrainConfig(), steps=t["steps"], seq_len=t["seq"])
+    step_fn = make_train_step(cfg, tcfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), 0).items()}
+    box = {"p": res["params"], "o": res["opt"]}
+
+    def one_step():
+        box["p"], box["o"], _ = step_fn(box["p"], box["o"], batch)
+
+    profile_window(torch, f"{cfg.name} train step", one_step, top=12)
+    del res, box, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_pipeline(torch, dev, smi, fam):
+    """The pipelined step on one family under 1f1b and bpipe; returns each
+    arm's flash launch counts."""
+    from repro_torch import serve
+    from repro_torch.core import schedule as S
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+
+    t = fam["pipe"]
+    cfg = serve.config_for(fam["arch"], layers=t["layers"], attn_impl="flash")
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    dc = DataConfig(batch=t["m"] * t["micro"], seq_len=t["seq"])
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, dc, i).items()}
+               for i in range(t["steps"])]
+    out = {}
+    for kind in ("1f1b", "bpipe"):
+        ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
+                              micro_batch=t["micro"], remat="flash")
+        out[kind] = pipelined_run(torch, dev, ex, params, batches, kind, smi,
+                                  tag=f"{cfg.name} pipeline")
+        if kind == "1f1b":
+            profile_window(torch, f"{cfg.name} pipelined step (1f1b)",
+                           lambda: ex.step(params, batches[0]), top=12)
+        del ex
+    a, b = out["1f1b"], out["bpipe"]
+    p = t["p"]
+    peaks = {kind: [arm["stats"].peak_local[i] for i in range(p)]
+             for kind, arm in out.items()}
+    compiled = {kind: [arm["compiled"][i] for i in range(p)] for kind, arm in out.items()}
+    cap = S.bpipe_cap(p)
+    ok_peaks = (peaks["1f1b"] == compiled["1f1b"]
+                and all(x <= y for x, y in zip(peaks["bpipe"], compiled["bpipe"]))
+                and max(peaks["bpipe"]) <= cap)
+    swaps = b["stats"].evictions == b["stats"].loads
+    same = a["loss"] == b["loss"] and a["norms"] == b["norms"]
+    want = len(attn_keys(cfg, 1)) * t["m"] * t["steps"]
+    ok_launches = all(v == want for arm in out.values() for v in arm["counts"].values())
+    finite = all(math.isfinite(arm["loss"]) for arm in out.values())
+    ok = ok_peaks and swaps and same and ok_launches and finite
+    print(f"[check] {cfg.name} pipelined step: peaks 1f1b {peaks['1f1b']} bpipe "
+          f"{peaks['bpipe']} against the compiled {compiled['1f1b']} and "
+          f"{compiled['bpipe']} (bpipe cap {cap}) {ok_peaks}; bpipe evictions "
+          f"{b['stats'].evictions} == loads {b['stats'].loads} {swaps}; 1f1b and "
+          f"bpipe loss and per-leaf grad norms bit-equal {same} ({a['loss']!r}, "
+          f"{b['loss']!r}), finite {finite}; flash launches {want} per kernel per "
+          f"arm {ok_launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{cfg.name}: the pipelined step's peaks, losses or launches are wrong")
+    del params, batches
+    torch.cuda.empty_cache()
+    return {kind: arm["counts"] for kind, arm in out.items()}
+
+
+def family_serve(torch, dev, smi, fam):
+    """``serve`` on one family, twice on the same prompts; returns the
+    flash launch counts over both."""
+    from repro_torch import serve
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    t = fam["serve"]
+    cfg = serve.config_for(fam["arch"], layers=t["layers"], attn_impl="flash")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    prompts = torch.randint(0, cfg.vocab_size, (t["batch"], t["prompt"]),
+                            generator=torch.Generator(dev).manual_seed(1), device=dev)
+    counts_zero(fa)
+    warm, res = [serve.serve(params, cfg, prompts, t["gen"]) for _ in range(2)]
+    counts = counts_read(fa)
+    print(f"[family serve] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} {cfg.dtype} "
+          f"attn={cfg.attn_impl}: b{t['batch']} prompt {t['prompt']} gen {t['gen']}; "
+          f"prefill {res['prefill_s'] * 1e3:.2f} ms (first call "
+          f"{warm['prefill_s'] * 1e3:.2f} ms), decode {res['decode_tok_s']:.2f} tok/s "
+          f"({res['decode_s'] * 1e3:.2f} ms for {t['gen'] - 1} steps); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
+    print(f"[family serve] {cfg.name} launches over 2 prefill calls: {counts}")
+    toks = res["tokens"]
+    if counts["flash_attention_fwd"] != 2 * len(attn_keys(cfg, 1)):
+        fail(f"{cfg.name} serving launched {counts}, want {2 * len(attn_keys(cfg, 1))} "
+             f"forwards")
+    if counts["flash_attention_dq"] or counts["flash_attention_dkv"]:
+        fail(f"{cfg.name} serving launched a backward kernel: {counts}")
+    if tuple(toks.shape) != (t["batch"], t["gen"]) or not (
+            0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size):
+        fail(f"{cfg.name} tokens of shape {tuple(toks.shape)} or out of the vocabulary")
+    if not all(bool(torch.isfinite(res[k]).all())
+               for k in ("prefill_logits", "last_logits")):
+        fail(f"{cfg.name} serve logits not finite")
+    if not torch.equal(toks, warm["tokens"]):
+        fail(f"two {cfg.name} serve runs of the same prompts gave different tokens")
+    b, sp, n_gen = t["batch"], t["prompt"], t["gen"]
+    state = M.init_decode_state(cfg, b, sp + n_gen, dev)
+    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    box = {}
+    with torch.inference_mode():
+        def run_prefill():
+            box["logits"], box["state"] = prefill_step(params, {"tokens": prompts}, state)
+
+        def run_decode():
+            tok = torch.argmax(box["logits"], dim=-1).to(torch.int32)
+            for i in range(n_gen - 1):
+                tok, _, box["state"] = serve_step(params, box["state"], tok, sp + i)
+
+        profile_window(torch, f"{cfg.name} prefill", run_prefill)
+        profile_window(torch, f"{cfg.name} decode ({n_gen - 1} steps)", run_decode)
+    del params, warm, res, state, box
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_checks(torch, dev):
+    """Each family at a small fp32 size, the card against the CPU on the
+    same params and inputs: the loss (1e-5) and grads (2e-4 + 1e-3|want|) of
+    ``make_loss_grad``, the serve loop's prefill and last decode logits
+    (2e-4) and its greedy tokens (equal). The MoE routes on fp32 random
+    inputs, so no two router probabilities tie."""
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import model as M
+    from repro_torch.train.steps import make_loss_grad
+
+    for fam in FAMILIES:
+        cfg = serve.config_for(fam["arch"], layers=4, attn_impl="flash", reduced=True)
+        cpu_params = M.init_params(torch.Generator().manual_seed(7), cfg, "cpu")
+        params = T.tree_map(lambda t: t.to(dev), cpu_params)
+        g = torch.Generator().manual_seed(8)
+        toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+        labels = toks[:, 1:].clone()
+        labels[0, :4] = -1
+        batch = {"tokens": toks[:, :-1], "labels": labels}
+        lg = make_loss_grad(cfg, TrainConfig())
+        c_loss, c_grads = lg(cpu_params, batch)
+        d_loss, d_grads = lg(params, {k: v.to(dev) for k, v in batch.items()})
+        loss_err = abs(float(d_loss) - float(c_loss))
+        pairs = list(zip(T.leaves(d_grads), T.leaves(c_grads)))
+        g_err = max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+        g_ok = all(bool(((a.cpu() - b).abs() <= 2e-4 + 1e-3 * b.abs()).all())
+                   for a, b in pairs)
+        prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=g)
+        c_res = serve.serve(cpu_params, cfg, prompts, 6)
+        d_res = serve.serve(params, cfg, prompts.to(dev), 6)
+        l_err = max(float((d_res[k].cpu() - c_res[k]).abs().max())
+                    for k in ("prefill_logits", "last_logits"))
+        same = torch.equal(d_res["tokens"].cpu(), c_res["tokens"])
+        ok = loss_err <= 1e-5 and g_ok and l_err <= 2e-4 and same
+        print(f"[check] reduced {fam['arch']} fp32, 4 layers, card vs CPU: loss "
+              f"{float(d_loss):.7f} err {loss_err:.3e} (tol 1e-5), grads max_abs_err "
+              f"{g_err:.3e} (tol 2e-4 + 1e-3|want|), prefill and last decode logits "
+              f"max_abs_err {l_err:.3e} (tol 2e-4), greedy tokens equal {same} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"reduced {fam['arch']} on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+
+def families_phase(torch, F, fa, ref, qkv, gen, dev, smi):
+    """Phase 13. Returns (the head_dim 256 row and errors, the flash launch
+    counts by path)."""
+    hd256 = family_kernels(torch, F, fa, ref, qkv, gen, dev, smi)
+    counts = {}
+    for fam in FAMILIES:
+        name = fam["arch"]
+        counts[f"{name} train"] = family_train(torch, dev, smi, fam)
+        for kind, c in family_pipeline(torch, dev, smi, fam).items():
+            counts[f"{name} pipeline {kind}"] = c
+        counts[f"{name} serve"] = family_serve(torch, dev, smi, fam)
+    family_checks(torch, dev)
+    for fam in FAMILIES:
+        paths = {k: c for k, c in counts.items() if k.startswith(fam["arch"])}
+        if not all(c["flash_attention_fwd"] > 0 for c in paths.values()) or not all(
+                c["flash_attention_dq"] > 0 and c["flash_attention_dkv"] > 0
+                for k, c in paths.items() if not k.endswith("serve")):
+            fail(f"the flash kernels did not launch on every {fam['arch']} path: {paths}")
+    return hd256, counts
 
 
 def sass_counts(libs):
@@ -1745,15 +2215,20 @@ def main():
     # -- 11. the estimation path: stage gains, audits, --plan auto ------------------------
     estimate_counts = estimation_phase(torch, dev, smi)
 
+    # -- 13. the other families (MoE, RG-LRU hybrid) and head_dim 256 ----------------------
+    (hd256_row, hd256_err), family_counts = families_phase(
+        torch, F, fa, ref, qkv, gen, dev, smi)
+
     def by_path(name):
         return {"serve": serve_counts.get(name, 0), "train": train_counts.get(name, 0),
                 **{f"pipeline {kind}": arm["counts"][name] for kind, arm in pipe.items()},
                 **{f"sliced pipeline {label}": c[name]
                    for label, c in sliced_counts.items()},
-                **{path: c[name] for path, c in estimate_counts.items()}}
+                **{path: c[name] for path, c in estimate_counts.items()},
+                **{path: c[name] for path, c in family_counts.items()}}
 
-    def launches(name):  # this slice's main path: the sliced pipelined step
-        return sum(c[name] for c in sliced_counts.values())
+    def launches(name):  # this slice's main paths: the two families' phase 13
+        return sum(c[name] for c in family_counts.values())
 
     def at_sliced_shapes(name):
         return [{"shape": row["shape"], **row[name]} for row in sliced_times]
@@ -1767,7 +2242,9 @@ def main():
          "launches": launches("flash_attention_fwd"),
          "launches_by_path": by_path("flash_attention_fwd"),
          "at_sliced_shapes": at_sliced_shapes("flash_attention_fwd"),
-         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+         "at_head_dim_256": hd256_row["flash_attention_fwd"],
+         "max_abs_err": max(max_err, hd256_err["flash_attention_fwd"]),
+         "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
     ] + [
         {"name": name, "route": "cuda",
@@ -1778,7 +2255,8 @@ def main():
          "launches": launches(name),
          "launches_by_path": by_path(name),
          "at_sliced_shapes": at_sliced_shapes(name),
-         "max_abs_err": bwd_err[name], "ms": bwd_ms_by[name],
+         "at_head_dim_256": hd256_row[name],
+         "max_abs_err": max(bwd_err[name], hd256_err[name]), "ms": bwd_ms_by[name],
          "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": bwd_library_ms,
          "library_computes": "dq, dk and dv together"}

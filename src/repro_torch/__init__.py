@@ -5,8 +5,10 @@ the twin of ``repro/<sub>/<mod>.py``) and imports nothing of it. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of falling back.
 
-Ported so far: the serving path of the dense decoders (prefill + greedy
-decode) with a hand-written CUDA flash-attention forward; the
+Ported so far: the model families with attention and RG-LRU mixers and
+dense or MoE FFNs (``models/moe.py``, ``models/recurrent.py``); their
+serving path (prefill + greedy decode) with a hand-written CUDA
+flash-attention forward (head_dim up to 256); the
 single-device training step (``launch.train``: loss, recompute arms,
 Adam, data, checkpoints) with hand-written CUDA flash-attention dq and
 dk/dv backward kernels; the pipelined step (``pipeline.PipelineExecutor``,

@@ -44,9 +44,7 @@
 namespace {
 
 constexpr int ROWS = 64;       // (query, GQA head) rows per query tile
-constexpr int BK = 64;         // keys per block
 constexpr int THREADS = 256;   // 32 key groups x 8 lanes
-constexpr int KI = BK / 32;    // keys per thread
 constexpr int RJ = ROWS / 8;   // score columns (rows) per thread
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;  // as the reference
 
@@ -65,14 +63,22 @@ struct Params {
   float softcap, scale;
 };
 
+// Keys per block: 64, or 32 past head_dim 128, where a block of 64 keys
+// at the full head would not fit the shared memory of a block.
+template <int HDP>
+__host__ __device__ constexpr int keys() { return HDP > 128 ? 32 : 64; }
+
 template <int HDP>
 constexpr size_t smem_bytes() {
+  constexpr int BK = keys<HDP>();
   return sizeof(float) * (2 * BK * (HDP + 1) + 2 * ROWS * (HDP + 1)
                           + 2 * BK * (ROWS + 1) + 2 * ROWS);
 }
 
 template <int HDP>
 __global__ void __launch_bounds__(THREADS) flash_dkv_fma_kernel(Params p) {
+  constexpr int BK = keys<HDP>();
+  constexpr int KI = BK / 32;   // keys per thread
   constexpr int RS = HDP + 1;   // row stride of K, V, Q, dO
   constexpr int PS = ROWS + 1;  // row stride of P^T and dS^T
   constexpr int OC = HDP / 8;   // dK/dV columns per thread
@@ -246,7 +252,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
       flash_dkv_fma_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sk + BK - 1) / BK, p.nkv, p.b);
+  const dim3 grid((p.sk + keys<HDP>() - 1) / keys<HDP>(), p.nkv, p.b);
   flash_dkv_fma_kernel<HDP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -255,7 +261,8 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   if (p.hd <= 32) return launch<32>(p, stream);
   if (p.hd <= 64) return launch<64>(p, stream);
   if (p.hd <= 96) return launch<96>(p, stream);
-  return launch<128>(p, stream);
+  if (p.hd <= 128) return launch<128>(p, stream);
+  return launch<256>(p, stream);
 }
 
 }  // namespace
@@ -271,7 +278,7 @@ extern "C" int flash_attention_dkv(
     long long dsb, long long dss, long long dsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 1 || hd > 128 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 1 || hd > 256 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, dout, lse, delta, dk, dv, b, sq, sk, nq, nkv, hd,

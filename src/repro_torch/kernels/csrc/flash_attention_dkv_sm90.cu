@@ -57,6 +57,14 @@
 // unrolled at compile time (S^T and dP^T run hd rounded up to 16). dK and
 // dV are written through K's and V's buffers by TMA stores, which drop rows
 // past sk and columns past hd.
+// head_dim 129-256: the dK and dV accumulators of 256 columns cannot sit
+// beside the rest in 255 registers (the hd-128 kernel already takes about
+// 250). So dK and dV are cut into two passes of 128 columns (HDO), one
+// block each (blockIdx.y): each keeps the hd-128 register budget and
+// recomputes S^T and dP^T over the full head, about 1.5x the tensor work
+// of one pass. A block holds K, V and the Q/dO ring at the full head, 199
+// KB, so one block fits an SM. Chunks wholly past hd (hd <= 192 at the 256
+// width) are not loaded or stored; they feed only columns past hd.
 
 #include "hopper.cuh"
 
@@ -78,7 +86,7 @@ struct Params {
   CUtensorMap tq, tk, tv, tdo, tdk, tdv;
   const float* lse;
   const float* delta;
-  int b, sq, sk, nkv, m, bq;
+  int b, sq, sk, nkv, hd, m, bq;
   int causal, window, q_offset;
   float softcap, scale;
 };
@@ -131,11 +139,21 @@ __device__ __forceinline__ void tile_ds(float (&s)[ROWS / 2], float (&dp)[ROWS /
 }
 
 // HDP: head_dim padded to 64-column chunks; KS: k16 steps of S^T and dP^T,
-// head_dim rounded up to 16 (the columns past hd are TMA's zeros).
-template <int HDP, int KS>
-__global__ void __launch_bounds__(THREADS, 2)
+// head_dim rounded up to 16 (the columns past hd are TMA's zeros); HDO:
+// the dK/dV columns of one pass (blockIdx.y picks the pass).
+template <int HDP, int KS, int HDO>
+__global__ void __launch_bounds__(THREADS, HDP > 128 ? 1 : 2)
 flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
   constexpr int NC = HDP / 64;              // 64-column chunks of head_dim
+  constexpr int NCO = HDO / 64;             // dK/dV chunks of one pass
+  // This pass's first dK/dV chunk; the chunks TMA loads and stores: those
+  // that start before hd.
+  // One pass (HDO == HDP, hd <= 128) loads every chunk, known at compile
+  // time; past 128 the pass (blockIdx.y) and hd decide.
+  constexpr bool SPLIT = HDO < HDP;
+  const int c0 = SPLIT ? blockIdx.y * NCO : 0;
+  const int nc_live = SPLIT ? min(NC, (p.hd + 63) / 64) : NC;
+  const int nco_live = SPLIT ? min(NCO, max(0, nc_live - c0)) : NCO;
   constexpr uint32_t Q_CHUNK = ROWS * 128;  // bytes between chunks of a Q/dO tile
   extern __shared__ char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(align1024(smem_raw));  // NC x BK x 64
@@ -195,17 +213,15 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_kv, 2 * NC * BK * 128);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    mbar_expect_tx(bar_kv, 2 * nc_live * BK * 128);
+    for (int c = 0; c < nc_live; ++c) {
       tma_load(sK + c * BK * 64, &p.tk, bar_kv, 64 * c, g, k0, bb);
       tma_load(sV + c * BK * 64, &p.tv, bar_kv, 64 * c, g, k0, bb);
     }
     for (int t = 0; t < STAGES && t < n_tiles; ++t) {
       const int q0 = q_begin + t * bq;
-      mbar_expect_tx(&bar_q[t], 2 * NC * 128 * box_rows);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      mbar_expect_tx(&bar_q[t], 2 * nc_live * 128 * box_rows);
+      for (int c = 0; c < nc_live; ++c) {
         tma_load(sQ + (t * NC + c) * ROWS * 64, &p.tq, &bar_q[t], 64 * c, g * m, q0, bb);
         tma_load(sdO + (t * NC + c) * ROWS * 64, &p.tdo, &bar_q[t], 64 * c, g * m, q0, bb);
       }
@@ -216,9 +232,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
 
   // This thread's two accumulator rows (keys) kr and kr + 8.
   const int kr = 16 * warp + (lane >> 2);
-  float dk[HDP / 2], dv[HDP / 2];
+  float dk[HDO / 2], dv[HDO / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < HDO / 2; ++i) dk[i] = dv[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -276,8 +292,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < ROWS / 16; ++kk) {
-      const uint64_t bdo = desc_mn(tdO, kk, Q_CHUNK), bq_ = desc_mn(tQ, kk, Q_CHUNK);
-      if constexpr (HDP == 128) {
+      const uint64_t bdo = desc_mn(tdO + c0 * ROWS * 64, kk, Q_CHUNK);
+      const uint64_t bq_ = desc_mn(tQ + c0 * ROWS * 64, kk, Q_CHUNK);
+      if constexpr (HDO == 128) {
         wgmma_rs_n128_tb(dv, ph[kk], bdo, 1);
         wgmma_rs_n128_tb(dv, pl[kk], bdo, 1);
         wgmma_rs_n128_tb(dk, dh[kk], bq_, 1);
@@ -299,9 +316,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
       my_ld[st * ROWS + lr] = next;
       if (tid == 0) {
         const int qn = q0 + STAGES * bq;
-        mbar_expect_tx(&bar_q[st], 2 * NC * 128 * box_rows);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
+        mbar_expect_tx(&bar_q[st], 2 * nc_live * 128 * box_rows);
+        for (int c = 0; c < nc_live; ++c) {
           tma_load(sQ + (st * NC + c) * ROWS * 64, &p.tq, &bar_q[st], 64 * c, g * m, qn, bb);
           tma_load(sdO + (st * NC + c) * ROWS * 64, &p.tdo, &bar_q[st], 64 * c, g * m, qn, bb);
         }
@@ -315,7 +331,7 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
   char* ok = reinterpret_cast<char*>(sK);
   char* ov = reinterpret_cast<char*>(sV);
 #pragma unroll
-  for (int i = 0; i < HDP / 2; i += 2) {
+  for (int i = 0; i < HDO / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int col = 8 * (i >> 2) + 2 * (lane & 3);
     *reinterpret_cast<uint32_t*>(ok + swz(BK, kr + 8 * h, col)) = pack_bf16(dk[i], dk[i + 1]);
@@ -324,24 +340,24 @@ flash_dkv_sm90_kernel(const __grid_constant__ Params p) {
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      tma_store(&p.tdk, sK + c * BK * 64, 64 * c, g, k0, bb);
-      tma_store(&p.tdv, sV + c * BK * 64, 64 * c, g, k0, bb);
+    for (int c = 0; c < nco_live; ++c) {
+      tma_store(&p.tdk, sK + c * BK * 64, 64 * (c0 + c), g, k0, bb);
+      tma_store(&p.tdv, sV + c * BK * 64, 64 * (c0 + c), g, k0, bb);
     }
     tma_store_wait();
   }
 }
 
-template <int HDP, int KS>
+template <int HDP, int KS, int HDO>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dkv_sm90_kernel<HDP, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_dkv_sm90_kernel<HDP, KS, HDO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>((p.sk + BK - 1) / BK) * p.nkv * p.b;
-  flash_dkv_sm90_kernel<HDP, KS><<<blocks, THREADS, smem, stream>>>(p);
+  const dim3 grid(static_cast<unsigned>((p.sk + BK - 1) / BK) * p.nkv * p.b,
+                  HDP / HDO);
+  flash_dkv_sm90_kernel<HDP, KS, HDO><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -358,13 +374,13 @@ extern "C" int flash_attention_dkv_sm90(
     long long dsb, long long dss, long long dsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 8 || hd > 256 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.lse = lse;
   p.delta = delta;
-  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv;
+  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv; p.hd = hd;
   p.m = nq / nkv;
   p.bq = ROWS / p.m;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
@@ -379,9 +395,11 @@ extern "C" int flash_attention_dkv_sm90(
       (err = make_map(&p.tdv, dv, b, sk, nkv, hd, sk * out_s, out_s, hd, 1, BK)))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 32) err = launch<64, 2>(p, st);
-  else if (hd <= 64) err = launch<64, 4>(p, st);
-  else if (hd <= 96) err = launch<128, 6>(p, st);
-  else err = launch<128, 8>(p, st);
+  if (hd <= 32) err = launch<64, 2, 64>(p, st);
+  else if (hd <= 64) err = launch<64, 4, 64>(p, st);
+  else if (hd <= 96) err = launch<128, 6, 128>(p, st);
+  else if (hd <= 128) err = launch<128, 8, 128>(p, st);
+  else if (hd <= 192) err = launch<256, 12, 128>(p, st);
+  else err = launch<256, 16, 128>(p, st);
   return static_cast<int>(err);
 }

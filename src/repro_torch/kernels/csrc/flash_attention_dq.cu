@@ -42,10 +42,8 @@
 namespace {
 
 constexpr int ROWS = 64;       // (query, GQA head) rows per block
-constexpr int BK = 64;         // keys per kv tile
 constexpr int THREADS = 256;   // 32 row groups x 8 lanes
 constexpr int RI = ROWS / 32;  // rows per thread
-constexpr int CJ = BK / 8;     // score columns per thread
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;  // as the reference
 
 struct Params {
@@ -62,19 +60,27 @@ struct Params {
   float softcap, scale;
 };
 
+// Keys per kv tile: 64, or 32 past head_dim 128, where a tile of 64 keys
+// at the full head would not fit the shared memory of a block.
+template <int HDP>
+__host__ __device__ constexpr int keys() { return HDP > 128 ? 32 : 64; }
+
 template <int HDP>
 __host__ __device__ constexpr int v_region() {  // floats of the V buffer, then dS
+  constexpr int BK = keys<HDP>();
   return BK * (HDP + 1) > ROWS * (BK + 1) ? BK * (HDP + 1) : ROWS * (BK + 1);
 }
 
 template <int HDP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (3 * ROWS * (HDP + 1) + v_region<HDP>());
+  return sizeof(float) * ((2 * ROWS + keys<HDP>()) * (HDP + 1) + v_region<HDP>());
 }
 
 template <int HDP>
 __global__ void __launch_bounds__(THREADS) flash_dq_fma_kernel(Params p) {
   constexpr int RS = HDP + 1;  // row stride of Q, dO, K, V
+  constexpr int BK = keys<HDP>();
+  constexpr int CJ = BK / 8;   // score columns per thread
   constexpr int PS = BK + 1;   // row stride of dS
   constexpr int OC = HDP / 8;  // dQ columns per thread
   extern __shared__ float smem[];
@@ -245,7 +251,8 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   if (p.hd <= 32) return launch<32>(p, stream);
   if (p.hd <= 64) return launch<64>(p, stream);
   if (p.hd <= 96) return launch<96>(p, stream);
-  return launch<128>(p, stream);
+  if (p.hd <= 128) return launch<128>(p, stream);
+  return launch<256>(p, stream);
 }
 
 }  // namespace
@@ -261,7 +268,7 @@ extern "C" int flash_attention_dq(
     long long dsb, long long dss, long long dsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 1 || hd > 128 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 1 || hd > 256 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, dout, lse, delta, dq, b, sq, sk, nq, nkv, hd, nq / nkv,

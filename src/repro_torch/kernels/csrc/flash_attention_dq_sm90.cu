@@ -40,6 +40,13 @@
 // to 16) and the softcap and mask branches are taken once a tile. dQ is
 // written through Q's buffer by a TMA store, which drops rows past sq and
 // columns past hd.
+// head_dim 129-256: dQ is cut into two passes of 128 columns (HDO), one
+// block each (blockIdx.y), as the forward cuts O: each keeps the hd-128
+// register budget (dq[64]) and recomputes S and dP over the full head,
+// about 1.4x the tensor work of one pass. A block holds Q, dO and the K/V
+// ring at the full head, 197 KB, so one block fits an SM. Chunks wholly
+// past hd (hd <= 192 at the 256 width) are not loaded or stored; they feed
+// only dQ columns past hd.
 
 #include "hopper.cuh"
 
@@ -61,7 +68,7 @@ struct Params {
   CUtensorMap tq, tk, tv, tdo, tdq;
   const float* lse;
   const float* delta;
-  int b, sq, sk, nkv, m, bq, n_qt;
+  int b, sq, sk, nkv, hd, m, bq, n_qt;
   int causal, window, q_offset;
   float softcap, scale;
 };
@@ -103,12 +110,22 @@ __device__ __forceinline__ void tile_ds(float (&s)[BK / 2], const float (&dp)[BK
 }
 
 // HDP: head_dim padded to 64-column chunks; KS: k16 steps of S and dP,
-// head_dim rounded up to 16 (the columns past hd are TMA's zeros).
-template <int HDP, int KS>
+// head_dim rounded up to 16 (the columns past hd are TMA's zeros); HDO:
+// the dQ columns of one pass (blockIdx.y picks the pass).
+template <int HDP, int KS, int HDO>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_sm90_kernel(const __grid_constant__ Params p) {
   constexpr int NC = HDP / 64;          // 64-column chunks of head_dim
+  constexpr int NCO = HDO / 64;         // dQ chunks of one pass
   constexpr uint32_t KV_CHUNK = BK * 128;
+  // This pass's first dQ chunk; the chunks TMA loads and stores: those
+  // that start before hd.
+  // One pass (HDO == HDP, hd <= 128) loads every chunk, known at compile
+  // time; past 128 the pass (blockIdx.y) and hd decide.
+  constexpr bool SPLIT = HDO < HDP;
+  const int c0 = SPLIT ? blockIdx.y * NCO : 0;
+  const int nc_live = SPLIT ? min(NC, (p.hd + 63) / 64) : NC;
+  const int nco_live = SPLIT ? min(NCO, max(0, nc_live - c0)) : NCO;
   extern __shared__ char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));  // NC x ROWS x 64
   bf16* sdO = sQ + NC * ROWS * 64;      // NC x ROWS x 64
@@ -142,17 +159,15 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_q, 2 * NC * 128 * m * p.bq);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
+    mbar_expect_tx(bar_q, 2 * nc_live * 128 * m * p.bq);
+    for (int c = 0; c < nc_live; ++c) {
       tma_load(sQ + c * ROWS * 64, &p.tq, bar_q, 64 * c, g * m, q0, bb);
       tma_load(sdO + c * ROWS * 64, &p.tdo, bar_q, 64 * c, g * m, q0, bb);
     }
     for (int t = 0; t < STAGES && t < n_tiles; ++t) {
       const int k0 = kv_begin + t * BK;
-      mbar_expect_tx(&bar_kv[t], 2 * NC * KV_CHUNK);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      mbar_expect_tx(&bar_kv[t], 2 * nc_live * KV_CHUNK);
+      for (int c = 0; c < nc_live; ++c) {
         tma_load(sK + (t * NC + c) * BK * 64, &p.tk, &bar_kv[t], 64 * c, g, k0, bb);
         tma_load(sV + (t * NC + c) * BK * 64, &p.tv, &bar_kv[t], 64 * c, g, k0, bb);
       }
@@ -176,9 +191,9 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
       dlt[h] = p.delta[row];
     }
   }
-  float dq[HDP / 2];
+  float dq[HDO / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < HDO / 2; ++i) dq[i] = 0.f;
 
   const int min_qpos = q0 + p.q_offset;
   const int max_qpos = q0 + nq_tile - 1 + p.q_offset;
@@ -230,8 +245,8 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t dk = desc_mn(tK, kk, KV_CHUNK);
-      if constexpr (HDP == 128) {
+      const uint64_t dk = desc_mn(tK + c0 * BK * 64, kk, KV_CHUNK);
+      if constexpr (HDO == 128) {
         wgmma_rs_n128_tb(dq, dh[kk], dk, 1);
         wgmma_rs_n128_tb(dq, dl[kk], dk, 1);
       } else {
@@ -246,9 +261,8 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
     __syncthreads();  // the warpgroup is done with this stage: refill it
     if (tid == 0 && t + STAGES < n_tiles) {
       const int kn = k0 + STAGES * BK;
-      mbar_expect_tx(&bar_kv[st], 2 * NC * KV_CHUNK);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
+      mbar_expect_tx(&bar_kv[st], 2 * nc_live * KV_CHUNK);
+      for (int c = 0; c < nc_live; ++c) {
         tma_load(sK + (st * NC + c) * BK * 64, &p.tk, &bar_kv[st], 64 * c, g, kn, bb);
         tma_load(sV + (st * NC + c) * BK * 64, &p.tv, &bar_kv[st], 64 * c, g, kn, bb);
       }
@@ -258,7 +272,7 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
   // dQ as bf16 into Q's buffer (swizzled), then one TMA store per chunk.
   char* out = reinterpret_cast<char*>(sQ);
 #pragma unroll
-  for (int i = 0; i < HDP / 2; i += 2) {
+  for (int i = 0; i < HDO / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int col = 8 * (i >> 2) + 2 * (lane & 3);
     *reinterpret_cast<uint32_t*>(out + swz(ROWS, r0 + 8 * h, col)) =
@@ -267,22 +281,21 @@ flash_dq_sm90_kernel(const __grid_constant__ Params p) {
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      tma_store(&p.tdq, sQ + c * ROWS * 64, 64 * c, g * m, q0, bb);
+    for (int c = 0; c < nco_live; ++c)
+      tma_store(&p.tdq, sQ + c * ROWS * 64, 64 * (c0 + c), g * m, q0, bb);
     tma_store_wait();
   }
 }
 
-template <int HDP, int KS>
+template <int HDP, int KS, int HDO>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<HDP>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_dq_sm90_kernel<HDP, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_dq_sm90_kernel<HDP, KS, HDO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>(p.n_qt) * p.nkv * p.b;
-  flash_dq_sm90_kernel<HDP, KS><<<blocks, THREADS, smem, stream>>>(p);
+  const dim3 grid(static_cast<unsigned>(p.n_qt) * p.nkv * p.b, HDP / HDO);
+  flash_dq_sm90_kernel<HDP, KS, HDO><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -299,13 +312,13 @@ extern "C" int flash_attention_dq_sm90(
     long long dsb, long long dss, long long dsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 8 || hd > 256 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.lse = lse;
   p.delta = delta;
-  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv;
+  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv; p.hd = hd;
   p.m = nq / nkv;
   p.bq = ROWS / p.m;
   p.n_qt = (sq + p.bq - 1) / p.bq;
@@ -320,9 +333,11 @@ extern "C" int flash_attention_dq_sm90(
                       static_cast<long long>(nq) * hd, hd, p.m, p.bq)))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 32) err = launch<64, 2>(p, st);
-  else if (hd <= 64) err = launch<64, 4>(p, st);
-  else if (hd <= 96) err = launch<128, 6>(p, st);
-  else err = launch<128, 8>(p, st);
+  if (hd <= 32) err = launch<64, 2, 64>(p, st);
+  else if (hd <= 64) err = launch<64, 4, 64>(p, st);
+  else if (hd <= 96) err = launch<128, 6, 128>(p, st);
+  else if (hd <= 128) err = launch<128, 8, 128>(p, st);
+  else if (hd <= 192) err = launch<256, 12, 128>(p, st);
+  else err = launch<256, 16, 128>(p, st);
   return static_cast<int>(err);
 }

@@ -40,10 +40,8 @@
 namespace {
 
 constexpr int ROWS = 64;      // (query, GQA head) rows per block
-constexpr int BK = 64;        // keys per kv tile
 constexpr int THREADS = 128;  // 16 row groups x 8 lanes
 constexpr int RI = ROWS / 16; // rows per thread
-constexpr int CJ = BK / 8;    // score columns per thread
 constexpr float NEG_INF = -0.7f * 3.402823466e38f;  // as the reference
 
 struct Params {
@@ -58,20 +56,28 @@ struct Params {
   float softcap, scale;
 };
 
+// Keys per kv tile: 64, or 32 past head_dim 128, where a tile of 64 keys
+// at the full head would not fit the shared memory of a block.
+template <int HDP>
+__host__ __device__ constexpr int keys() { return HDP > 128 ? 32 : 64; }
+
 template <int HDP>
 __host__ __device__ constexpr int k_region() {  // floats of the K buffer, then P
+  constexpr int BK = keys<HDP>();
   return BK * (HDP + 1) > ROWS * (BK + 1) ? BK * (HDP + 1) : ROWS * (BK + 1);
 }
 
 template <int HDP>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (ROWS * (HDP + 1) + k_region<HDP>() + BK * HDP);
+  return sizeof(float) * (ROWS * (HDP + 1) + k_region<HDP>() + keys<HDP>() * HDP);
 }
 
 template <int HDP>
 __global__ void __launch_bounds__(THREADS) flash_fwd_fma_kernel(Params p) {
   constexpr int QS = HDP + 1;
   constexpr int KS = HDP + 1;
+  constexpr int BK = keys<HDP>();
+  constexpr int CJ = BK / 8;  // score columns per thread
   constexpr int PS = BK + 1;
   constexpr int OC = HDP / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -240,7 +246,8 @@ cudaError_t dispatch(const Params& p, cudaStream_t stream) {
   if (p.hd <= 32) return launch<32>(p, stream);
   if (p.hd <= 64) return launch<64>(p, stream);
   if (p.hd <= 96) return launch<96>(p, stream);
-  return launch<128>(p, stream);
+  if (p.hd <= 128) return launch<128>(p, stream);
+  return launch<256>(p, stream);
 }
 
 }  // namespace
@@ -254,7 +261,7 @@ extern "C" int flash_attention_fwd(
     long long vsb, long long vss, long long vsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 1 || hd > 128 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 1 || hd > 256 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, lse, b, sq, sk, nq, nkv, hd, nq / nkv,

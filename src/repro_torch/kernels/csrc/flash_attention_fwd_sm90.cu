@@ -25,8 +25,9 @@
 // chunk of head_dim, loaded once. K/V tiles of 64 keys go through a
 // two-stage ring filled by TMA and completed on an mbarrier, so tile i+1
 // loads while tile i computes; thread 0 refills a stage once both
-// warpgroups have finished with it. Two blocks fit an SM (96 KB of shared
-// memory each, at most 128 registers a thread), so four warpgroups share
+// warpgroups have finished with it. Up to hd 128 two blocks fit an SM (96
+// KB of shared memory each, at most 128 registers a thread), so four
+// warpgroups share
 // its tensor cores; one warpgroup a block measured slower at the serve
 // shape (PERF.md).
 //   S = Q K^T is a wgmma with both operands in shared memory (K-major).
@@ -46,10 +47,19 @@
 //   blocks in flight share a few heads' K/V in L2, and each head's longest
 //   causal tiles start first.
 //   head_dim: 64-column chunks (128 bytes, the 128B swizzle's row), padded
-//   with TMA's zero fill past hd: hd <= 64 takes one chunk, up to 128 two.
-//   S runs hd rounded up to 16 (instances for 32, 64, 96 and 128); P V
-//   runs the padded width (hd 96 does 128 columns of P V, a third more
-//   than it needs). Every wgmma loop is unrolled at compile time and the
+//   with TMA's zero fill past hd: hd <= 64 takes one chunk, up to 128 two,
+//   up to 256 four. S runs hd rounded up to 16 (instances for 32, 64, 96,
+//   128, 192 and 256); P V runs the padded width (hd 96 does 128 columns
+//   of P V, a third more than it needs).
+//   head_dim 129-256: O of 64 rows at 256 columns would take 128
+//   accumulator registers a thread beside S and the P fragments, past the
+//   255 a thread may have. So the output's head_dim is cut into two passes
+//   of 128 columns (HDO), one block each (blockIdx.y): each keeps the hd-128
+//   register budget (o[64]) and computes S over the full head again, about
+//   1.5x the tensor work of one pass. A block holds Q and the K ring at the
+//   full head and the V ring at its pass's 128 columns, 165 KB, so one
+//   block fits an SM. Chunks wholly past hd (hd <= 192 at the 256 width)
+//   are not loaded or stored; they feed only output columns past hd. Every wgmma loop is unrolled at compile time and the
 //   softcap and mask branches are taken once a tile: a branch between two
 //   wgmmas makes ptxas serialise them.
 //   O is written through shared memory (Q's buffer, in the swizzled
@@ -76,14 +86,15 @@ constexpr float LN2 = 0.6931471805599453f;
 struct Params {
   CUtensorMap tq, tk, tv, to;
   float* lse;
-  int b, sq, sk, nkv, m, bq, n_qt;
+  int b, sq, sk, nkv, hd, m, bq, n_qt;
   int causal, window, q_offset;
   float softcap, scale;
 };
 
-template <int HDP>
+template <int HDP, int HDO>
 constexpr size_t smem_bytes() {
-  return 1024 + sizeof(bf16) * 64 * (HDP / 64) * (ROWS + 2 * STAGES * BK)
+  return 1024 + sizeof(bf16) * 64 * ((HDP / 64) * (ROWS + STAGES * BK)
+                                     + (HDO / 64) * STAGES * BK)
          + 8 * (1 + STAGES);
 }
 
@@ -108,19 +119,42 @@ __device__ __forceinline__ void log2_scores(float (&s)[BK / 2], const Params& p,
   }
 }
 
+// One K/V tile into a ring stage: the K chunks S reads and the V chunks of
+// this pass, `bytes` announced on the stage's barrier (thread 0 only).
+__device__ __forceinline__ void load_kv(bf16* dk, bf16* dv, const Params& p,
+                                        uint64_t* bar, uint32_t bytes, int nk,
+                                        int c0, int nv, int g, int k0, int bb) {
+  mbar_expect_tx(bar, bytes);
+  for (int c = 0; c < nk; ++c)
+    tma_load(dk + c * BK * 64, &p.tk, bar, 64 * c, g, k0, bb);
+  for (int c = 0; c < nv; ++c)
+    tma_load(dv + c * BK * 64, &p.tv, bar, 64 * (c0 + c), g, k0, bb);
+}
+
 // HDP: head_dim padded to 64-column chunks; KS: k16 steps of S = Q K^T,
-// head_dim rounded up to 16 (the columns past hd are TMA's zeros).
-template <int HDP, int KS>
-__global__ void __launch_bounds__(THREADS, 2)
+// head_dim rounded up to 16 (the columns past hd are TMA's zeros); HDO:
+// the output columns of one pass (blockIdx.y picks the pass).
+template <int HDP, int KS, int HDO>
+__global__ void __launch_bounds__(THREADS, HDP > 128 ? 1 : 2)
 flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
   constexpr int NC = HDP / 64;          // 64-column chunks of head_dim
+  constexpr int NCO = HDO / 64;         // chunks of V and O of one pass
   constexpr uint32_t KV_CHUNK = BK * 128;
   extern __shared__ char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(align1024(smem_raw));  // NC x ROWS x 64
   bf16* sK = sQ + NC * ROWS * 64;       // STAGES x NC x BK x 64
-  bf16* sV = sK + STAGES * NC * BK * 64;
-  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * NC * BK * 64);
+  bf16* sV = sK + STAGES * NC * BK * 64;  // STAGES x NCO x BK x 64
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(sV + STAGES * NCO * BK * 64);
   uint64_t* bar_kv = bar_q + 1;
+  // This pass's first V/O chunk; the chunks TMA loads: those that start
+  // before hd (the K/Q ones S reads, the V/O ones of the pass).
+  // One pass (HDO == HDP, hd <= 128) loads every chunk, known at compile
+  // time; past 128 the pass (blockIdx.y) and hd decide.
+  constexpr bool SPLIT = HDO < HDP;
+  const int c0 = SPLIT ? blockIdx.y * NCO : 0;
+  const int nc_live = SPLIT ? min(NC, (p.hd + 63) / 64) : NC;
+  const int nco_live = SPLIT ? min(NCO, max(0, nc_live - c0)) : NCO;
+  const uint32_t kv_bytes = (nc_live + nco_live) * KV_CHUNK;
 
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   // The query tile runs fastest through the block index, so the blocks in
@@ -149,19 +183,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar_q, NC * 128 * m * p.bq);
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
+    mbar_expect_tx(bar_q, nc_live * 128 * m * p.bq);
+    for (int c = 0; c < nc_live; ++c)
       tma_load(sQ + c * ROWS * 64, &p.tq, bar_q, 64 * c, g * m, q0, bb);
-    for (int t = 0; t < STAGES && t < n_tiles; ++t) {
-      const int k0 = kv_begin + t * BK;
-      mbar_expect_tx(&bar_kv[t], 2 * NC * KV_CHUNK);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        tma_load(sK + (t * NC + c) * BK * 64, &p.tk, &bar_kv[t], 64 * c, g, k0, bb);
-        tma_load(sV + (t * NC + c) * BK * 64, &p.tv, &bar_kv[t], 64 * c, g, k0, bb);
-      }
-    }
+    for (int t = 0; t < STAGES && t < n_tiles; ++t)
+      load_kv(sK + t * NC * BK * 64, sV + t * NCO * BK * 64, p, &bar_kv[t],
+              kv_bytes, nc_live, c0, nco_live, g, kv_begin + t * BK, bb);
   }
 
   // This thread's two accumulator rows: r0 and r0 + 8. Warpgroup wg owns
@@ -182,9 +209,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
     m_i[h] = NEG_INF;
     l_i[h] = 0.f;
   }
-  float o[HDP / 2];
+  float o[HDO / 2];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HDO / 2; ++i) o[i] = 0.f;
 
   const int min_qpos = wg_first_q + p.q_offset;
   const int max_qpos = wg_last_q + p.q_offset;
@@ -195,7 +222,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
     const int st = t % STAGES;
     const int k0 = kv_begin + t * BK;
     const bf16* tK = sK + st * NC * BK * 64;
-    const bf16* tV = sV + st * NC * BK * 64;
+    const bf16* tV = sV + st * NCO * BK * 64;
     if (t < wg_tiles) {  // the tiles this warpgroup's rows see
       mbar_wait(&bar_kv[st], (t / STAGES) & 1);
 
@@ -243,7 +270,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
         l_i[h] += s[i];  // this lane's part of the row sum; lanes reduce at the end
       }
 #pragma unroll
-      for (int i = 0; i < HDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HDO / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 
       // O += P V, P as bf16 hi + lo
       uint32_t ph[BK / 16][4], pl[BK / 16][4];
@@ -255,7 +282,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t dv = desc_mn(tV, kk, KV_CHUNK);
-        if constexpr (HDP == 128) {
+        if constexpr (HDO == 128) {
           wgmma_rs_n128_tb(o, ph[kk], dv, 1);
           wgmma_rs_n128_tb(o, pl[kk], dv, 1);
         } else {
@@ -269,15 +296,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
     }
 
     __syncthreads();  // both warpgroups are done with this stage: refill it
-    if (tid == 0 && t + STAGES < n_tiles) {
-      const int kn = k0 + STAGES * BK;
-      mbar_expect_tx(&bar_kv[st], 2 * NC * KV_CHUNK);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        tma_load(sK + (st * NC + c) * BK * 64, &p.tk, &bar_kv[st], 64 * c, g, kn, bb);
-        tma_load(sV + (st * NC + c) * BK * 64, &p.tv, &bar_kv[st], 64 * c, g, kn, bb);
-      }
-    }
+    if (tid == 0 && t + STAGES < n_tiles)
+      load_kv(sK + st * NC * BK * 64, sV + st * NCO * BK * 64, p, &bar_kv[st],
+              kv_bytes, nc_live, c0, nco_live, g, k0 + STAGES * BK, bb);
   }
 
   // O / max(l, 1e-30) as bf16 into Q's buffer (swizzled), then one TMA store
@@ -290,7 +311,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
     const float denom = fmaxf(l_i[h], 1e-30f);
     inv[h] = 1.f / denom;
     const int r = r0 + 8 * h;
-    if ((lane & 3) == 0 && r < nrows) {
+    if ((lane & 3) == 0 && r < nrows && blockIdx.y == 0) {
       const int qi = q0 + r / m, mi = r % m;
       p.lse[((static_cast<long long>(bb) * p.sq + qi) * p.nkv + g) * m + mi] =
           m_i[h] * LN2 + logf(denom);
@@ -298,7 +319,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
   }
   char* out = reinterpret_cast<char*>(sQ);
 #pragma unroll
-  for (int i = 0; i < HDP / 2; i += 2) {
+  for (int i = 0; i < HDO / 2; i += 2) {
     const int h = (i >> 1) & 1;
     const int col = 8 * (i >> 2) + 2 * (lane & 3);
     *reinterpret_cast<uint32_t*>(out + swz(ROWS, r0 + 8 * h, col)) =
@@ -307,22 +328,21 @@ flash_fwd_sm90_kernel(const __grid_constant__ Params p) {
   fence_proxy_async();
   __syncthreads();
   if (tid == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      tma_store(&p.to, sQ + c * ROWS * 64, 64 * c, g * m, q0, bb);
+    for (int c = 0; c < nco_live; ++c)
+      tma_store(&p.to, sQ + c * ROWS * 64, 64 * (c0 + c), g * m, q0, bb);
     tma_store_wait();
   }
 }
 
-template <int HDP, int KS>
+template <int HDP, int KS, int HDO>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = smem_bytes<HDP>();
+  const size_t smem = smem_bytes<HDP, HDO>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<HDP, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_sm90_kernel<HDP, KS, HDO>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned blocks = static_cast<unsigned>(p.n_qt) * p.nkv * p.b;
-  flash_fwd_sm90_kernel<HDP, KS><<<blocks, THREADS, smem, stream>>>(p);
+  const dim3 grid(static_cast<unsigned>(p.n_qt) * p.nkv * p.b, HDP / HDO);
+  flash_fwd_sm90_kernel<HDP, KS, HDO><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -337,12 +357,12 @@ extern "C" int flash_attention_fwd_sm90(
     long long vsb, long long vss, long long vsh,
     int causal, int window, int q_offset, float softcap, float scale,
     void* stream) {
-  if (hd < 8 || hd > 128 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
+  if (hd < 8 || hd > 256 || hd % 8 || nkv < 1 || nq % nkv || nq / nkv > ROWS ||
       b < 1 || sq < 1 || sk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.lse = lse;
-  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv;
+  p.b = b; p.sq = sq; p.sk = sk; p.nkv = nkv; p.hd = hd;
   p.m = nq / nkv;
   p.bq = ROWS / p.m;
   p.n_qt = (sq + p.bq - 1) / p.bq;
@@ -356,9 +376,11 @@ extern "C" int flash_attention_fwd_sm90(
                       static_cast<long long>(nq) * hd, hd, p.m, p.bq)))
     return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd <= 32) err = launch<64, 2>(p, st);
-  else if (hd <= 64) err = launch<64, 4>(p, st);
-  else if (hd <= 96) err = launch<128, 6>(p, st);
-  else err = launch<128, 8>(p, st);
+  if (hd <= 32) err = launch<64, 2, 64>(p, st);
+  else if (hd <= 64) err = launch<64, 4, 64>(p, st);
+  else if (hd <= 96) err = launch<128, 6, 128>(p, st);
+  else if (hd <= 128) err = launch<128, 8, 128>(p, st);
+  else if (hd <= 192) err = launch<256, 12, 128>(p, st);
+  else err = launch<256, 16, 128>(p, st);
   return static_cast<int>(err);
 }

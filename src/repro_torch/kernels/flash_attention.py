@@ -24,6 +24,11 @@ fallback between them:
   * fp32 -> "fma": ``csrc/flash_attention_{fwd,dq,dkv}.cu``, exact fp32
     products on the CUDA cores (wgmma would run fp32 as TF32).
 
+Both routes take head_dim in multiples of 8 from 8 to 256 (the Pallas
+kernel takes the whole head too): past 128 the sm90 kernels run the
+output's head_dim in two passes of 128 columns, and the fp32 kernels take
+tiles of 32 keys.
+
 ``flash_attention_fwd.launches``, ``flash_attention_bwd.dq_launches`` and
 ``flash_attention_bwd.dkv_launches`` count kernel launches of either route
 (and nothing else), so a run can show that it went through the kernels.
@@ -40,7 +45,7 @@ from repro_torch.kernels.ref import (flash_attention_bwd_ref, flash_attention_de
                                      flash_attention_ref)
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: the C entry point of each kernel on each route
 _ENTRIES = {("fwd", "sm90"): "flash_attention_fwd_sm90",
             ("fwd", "fma"): "flash_attention_fwd",

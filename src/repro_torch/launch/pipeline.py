@@ -7,12 +7,15 @@ peaks and moves: the paper's Fig. 1, live.
 
     python -m repro_torch.launch.pipeline --device cpu    # reduced qwen, fp32
     python -m repro_torch.launch.pipeline                 # the same on the card
+    python -m repro_torch.launch.pipeline --arch recurrentgemma-2b --reduced \
+        --stages 3 --layers 6 --device cpu               # another family
 
 The example's flags (``--stages``, ``--micro``, ``--steps``, ``--v``,
-``--plan``) plus ``--arch``, ``--layers``, ``--batch``, ``--seq`` and
-``--device``, as ``launch.train`` takes them. Without ``--arch`` the model
-is the example's, reduced qwen1.5-0.5b in fp32; ``--arch`` names a config
-at full width in its own dtype. Without ``--layers`` the depth is the
+``--plan``) plus ``--arch``, ``--reduced``, ``--layers``, ``--batch``,
+``--seq`` and ``--device``, as ``launch.train`` takes them. Without
+``--arch`` the model is the example's, reduced qwen1.5-0.5b in fp32;
+``--arch`` names a config at full width in its own dtype, or with
+``--reduced`` its smoke-scale variant in fp32. Without ``--layers`` the depth is the
 example's max(2, v) * stages. Attention is always the port's flash
 kernels. Each arm starts from the same params (seed 0, drawn on the CPU so
 that every device gets the same), calls ``PipelineExecutor.step`` and then
@@ -64,6 +67,8 @@ def parse_args(argv=None):
     ap.add_argument("--arch", default=None,
                     help="model config at full width (default: the "
                          "example's reduced qwen1.5-0.5b in fp32)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the --arch family's smoke-scale variant in fp32")
     ap.add_argument("--layers", type=int, default=None,
                     help="depth (default: max(2, v) * stages)")
     ap.add_argument("--batch", type=int, default=8)
@@ -114,6 +119,8 @@ def main(argv=None):
     p = args.stages
     if args.arch:
         cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = dataclasses.replace(cfg.reduced(), dtype="float32")
     else:
         cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
                                   dtype="float32")

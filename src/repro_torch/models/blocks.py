@@ -13,51 +13,61 @@ Recompute arms, as in the JAX twin: ``remat="attn"`` checkpoints each
 layer's mixer, ``"full"`` each stacked pattern block (not the remainder
 layers), both with ``torch.utils.checkpoint`` (non-reentrant).
 
-Each layer = pre-norm mixer + pre-norm dense FFN, residual. The port covers
-the attention mixers (ATTN, LOCAL); the other kinds raise.
+Each layer = pre-norm mixer (ATTN, LOCAL or RGLRU) + pre-norm FFN (dense
+or MoE), residual; a layer returns its MoE aux loss beside x (0 for a dense
+FFN). The xLSTM mixers (MLSTM, SLSTM) raise.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, LOCAL, MLSTM, RGLRU, SLSTM
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_mlp, apply_norm, init_mlp, init_norm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import recurrent as rec_mod
+from repro_torch.models.layers import (apply_mlp, apply_norm, cast_matmul,
+                                       init_mlp, init_norm)
 
 _NOT_PORTED = {
-    RGLRU: "RG-LRU mixers are not ported yet (ROADMAP queue A, other mixers)",
-    MLSTM: "xLSTM mixers are not ported yet (ROADMAP queue A, other mixers)",
-    SLSTM: "xLSTM mixers are not ported yet (ROADMAP queue A, other mixers)",
+    MLSTM: "xLSTM mixers are not ported yet (ROADMAP A10b)",
+    SLSTM: "xLSTM mixers are not ported yet (ROADMAP A10b)",
 }
 
 
-def _check_supported(cfg, kind):
+def _check_supported(kind):
     if kind in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[kind])
-    if kind not in (ATTN, LOCAL):
+    if kind not in (ATTN, LOCAL, RGLRU):
         raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "MoE FFNs are not ported yet (ROADMAP queue A, other mixers)")
 
 
 # ---------------------------------------------------------------------------
 # Single-layer init / apply
 # ---------------------------------------------------------------------------
 def init_layer(gen, cfg, kind, device):
-    _check_supported(cfg, kind)
-    p: Dict[str, Any] = {"norm1": init_norm(cfg, device=device),
-                         "mixer": attn_mod.init_attention(gen, cfg, device)}
-    if cfg.d_ff:
+    _check_supported(kind)
+    p: Dict[str, Any] = {"norm1": init_norm(cfg, device=device)}
+    if kind == RGLRU:
+        p["mixer"] = rec_mod.init_rglru_block(gen, cfg, device)
+    else:
+        p["mixer"] = attn_mod.init_attention(gen, cfg, device)
+    if cfg.moe is not None:
+        p["norm2"] = init_norm(cfg, device=device)
+        p["ffn"] = moe_mod.init_moe(gen, cfg, device)
+    elif cfg.d_ff:
         p["norm2"] = init_norm(cfg, device=device)
         p["ffn"] = init_mlp(gen, cfg, device)
     return p
 
 
 def _apply_mixer(p, x, cfg, kind, positions, *, remat):
+    if kind == RGLRU:
+        return rec_mod.apply_rglru_block(p, x, cfg)
+
     def f(p_, x_):
         out, _ = attn_mod.attention(p_, x_, cfg, positions, kind=kind)
         return out
@@ -65,6 +75,20 @@ def _apply_mixer(p, x, cfg, kind, positions, *, remat):
     if remat == "attn":
         return checkpoint(f, p, x, use_reentrant=False)
     return f(p, x)
+
+
+def _ffn(p, x, cfg):
+    """The layer's pre-norm FFN residual (the twin's ``_apply_ffn`` and the
+    residual around it): (x, aux), aux the MoE's aux loss, 0 for a dense
+    FFN or none."""
+    if "ffn" not in p:
+        return x, 0.0
+    xn = apply_norm(p["norm2"], x)
+    if cfg.moe is not None:
+        h, aux = moe_mod.apply_moe(p["ffn"], xn, cfg)
+    else:
+        h, aux = apply_mlp(p["ffn"], xn, cfg), 0.0
+    return x + h, aux
 
 
 #: Mixer kinds that can run sequence slices (seq_chunks > 1): causal
@@ -80,14 +104,14 @@ def apply_layer_sliced(p, x, cfg, kind, positions, kv_prefix, *,
     Returns (x, aux_loss, (k, v)): the slice's own post-RoPE KV, which the
     pipeline executor keeps for later slices. Only attention mixers
     (``SLICEABLE_KINDS``) can slice; cross-attention layers cannot (the
-    encoder states span the whole sequence).
+    encoder states span the whole sequence). A MoE FFN routes the slice on
+    its own: its capacity follows the slice's length, as in the twin.
     """
     if kind not in SLICEABLE_KINDS:
         raise ValueError(
             f"seq_chunks > 1 needs attention mixers, got {kind!r}")
     if "cross" in p:
         raise ValueError("seq_chunks > 1 does not support cross-attention")
-    _check_supported(cfg, kind)
 
     def mix(p_, x_, pk, pv):
         return attn_mod.attention_sliced(p_, x_, cfg, positions, (pk, pv),
@@ -98,48 +122,66 @@ def apply_layer_sliced(p, x, cfg, kind, positions, kv_prefix, *,
                            *kv_prefix, use_reentrant=False)
     else:
         h, kv = mix(p["mixer"], apply_norm(p["norm1"], x), *kv_prefix)
-    x = x + h
-    if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
-    return x, 0.0, kv
+    x, aux = _ffn(p, x + h, cfg)
+    return x, aux, kv
 
 
 def apply_layer(p, x, cfg, kind, positions, *, remat="none"):
     """Forward layer. Returns (x, aux_loss); aux is 0 for a dense FFN."""
-    _check_supported(cfg, kind)
+    _check_supported(kind)
     x = x + _apply_mixer(p["mixer"], apply_norm(p["norm1"], x), cfg, kind,
                          positions, remat=remat)
-    if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
-    return x, 0.0
+    return _ffn(p, x, cfg)
 
 
-# ---- per-layer KV state ------------------------------------------------------
+# ---- per-layer recurrent/KV state ----------------------------------------------
 def init_layer_state(cfg, kind, batch, max_len, dtype, device):
-    _check_supported(cfg, kind)
+    _check_supported(kind)
+    if kind == RGLRU:
+        return rec_mod.init_rglru_state(cfg, batch, dtype, device)
     return attn_mod.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
 
 
+def _rglru_prefill(p, xn, cfg, state):
+    """The RG-LRU block that also writes its terminal state in place: h at
+    the last position (fp32, after the rounding to the compute dtype the
+    block's output takes) and the conv's last cw - 1 inputs, left-padded
+    with zeros when the prompt is shorter."""
+    u = cast_matmul(xn, p["in_x"])
+    g = F.gelu(cast_matmul(xn, p["in_g"]), approximate="tanh")
+    h = rec_mod.rglru_scan(p, rec_mod._conv_full(p, u))
+    out = cast_matmul(h * g, p["out"])
+    tail = u[:, -(cfg.conv_width - 1):]
+    state["h"].copy_(h[:, -1].float())
+    state["conv"].zero_()
+    state["conv"][:, state["conv"].shape[1] - tail.shape[1]:] = tail
+    return out, state
+
+
 def apply_layer_prefill(p, x, cfg, kind, positions, state):
-    """Like apply_layer but also fills this layer's KV cache (in place)."""
-    _check_supported(cfg, kind)
-    h, (k, v) = attn_mod.attention(p["mixer"], apply_norm(p["norm1"], x), cfg,
-                                   positions, kind=kind)
-    new_state = attn_mod.fill_kv_cache(state, k, v)
-    x = x + h
-    if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
+    """Like apply_layer but also fills this layer's decode state (in place)."""
+    _check_supported(kind)
+    xn = apply_norm(p["norm1"], x)
+    if kind == RGLRU:
+        h, new_state = _rglru_prefill(p["mixer"], xn, cfg, state)
+    else:
+        h, (k, v) = attn_mod.attention(p["mixer"], xn, cfg, positions,
+                                       kind=kind)
+        new_state = attn_mod.fill_kv_cache(state, k, v)
+    x, _ = _ffn(p, x + h, cfg)
     return x, new_state
 
 
 def apply_layer_decode(p, x, cfg, kind, pos, state):
     """One-token decode. x: (b, 1, d). Returns (x, new_state)."""
-    _check_supported(cfg, kind)
-    h, state = attn_mod.attention_decode(p["mixer"], apply_norm(p["norm1"], x),
-                                         cfg, state, pos, kind=kind)
-    x = x + h
-    if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], apply_norm(p["norm2"], x), cfg)
+    _check_supported(kind)
+    xn = apply_norm(p["norm1"], x)
+    if kind == RGLRU:
+        h, state = rec_mod.apply_rglru_block_step(p["mixer"], xn, cfg, state)
+    else:
+        h, state = attn_mod.attention_decode(p["mixer"], xn, cfg, state, pos,
+                                             kind=kind)
+    x, _ = _ffn(p, x + h, cfg)
     return x, state
 
 

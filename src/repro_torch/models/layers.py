@@ -7,7 +7,8 @@ the public entry points (``model.init_params``) choose it. Params are stored fp3
 compute dtype on read; norms and softmax run in fp32. Every weight product
 goes through ``cast_matmul``, which saves the fp32 weight for the backward
 and casts it again there, so no compute-dtype copy of a weight is held
-between a forward and its backward.
+between a forward and its backward; ``cast_bmm`` does the same for the
+MoE's expert-stacked weights.
 """
 from __future__ import annotations
 
@@ -58,6 +59,35 @@ def cast_matmul(x, w):
     """``x @ w.to(x.dtype)`` for x (..., k) and a 2-D weight w (k, n),
     whose backward saves the fp32 ``w`` rather than its compute-dtype copy."""
     return _CastMatmul.apply(x, w)
+
+
+class _CastBmm(torch.autograd.Function):
+    """``torch.bmm(x, w.to(x.dtype))`` for expert-stacked weights, saving
+    ``w`` itself for the backward as ``_CastMatmul`` does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.bmm(x, w.to(x.dtype))
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        wc = w.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.bmm(g, wc.transpose(1, 2))
+        if ctx.needs_input_grad[1]:
+            gw = torch.bmm(x.transpose(1, 2), g).to(w.dtype)
+        return gx, gw
+
+
+def cast_bmm(x, w):
+    """The batched ``cast_matmul``: x (E, n, k) and an expert-stacked weight
+    w (E, k, f) give (E, n, f), the einsum "end,edf->enf" of x with
+    ``w.to(x.dtype)``; the backward saves the fp32 ``w``, not its copy."""
+    return _CastBmm.apply(x, w)
 
 
 def softcap(x, cap: float):

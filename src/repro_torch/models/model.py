@@ -1,6 +1,7 @@
 """Top-level model: embeddings -> PatternStack -> norm -> logits.
 
-Covers the decoder-only LMs with attention mixers and dense FFNs; the
+Covers the decoder-only LMs: attention, RG-LRU and hybrid stacks (ATTN,
+LOCAL, RGLRU mixers) with dense or MoE FFNs. The xLSTM mixers, the
 encoder-decoder (whisper) and vision-prefix (VLM) inputs raise.
 
 API:
@@ -29,8 +30,7 @@ ENCODER_FRAMES = 1500  # whisper-style fixed encoder length (core/flops.py)
 def _stack(cfg: ModelConfig) -> PatternStack:
     if cfg.is_encdec:
         raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP queue A, "
-            "enc-dec paths)")
+            "encoder-decoder models are not ported yet (ROADMAP A10c)")
     return PatternStack(cfg)
 
 
@@ -53,7 +53,7 @@ def _embed_inputs(params, batch, cfg):
     if "prefix_embeds" in batch or "enc_embeds" in batch:
         raise NotImplementedError(
             "vision-prefix and encoder inputs are not ported yet (ROADMAP "
-            "queue A, enc-dec paths)")
+            "A10c)")
     x = embed(params["embed"], batch["tokens"], cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -61,7 +61,8 @@ def _embed_inputs(params, batch, cfg):
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat="none"):
-    """batch: {tokens (b, s)}. Returns (logits over token positions, aux)."""
+    """batch: {tokens (b, s)}. Returns (logits over token positions, the
+    MoE aux loss summed over the layers; 0 without MoE)."""
     x, positions = _embed_inputs(params, batch, cfg)
     x, aux = _stack(cfg).apply(params["blocks"], x, positions, remat=remat)
     x = apply_norm(params["final_norm"], x)
@@ -69,7 +70,7 @@ def forward(params, batch, cfg: ModelConfig, *, remat="none"):
 
 
 def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
-    """Next-token cross-entropy in fp32 + aux (0 for a dense FFN).
+    """Next-token cross-entropy in fp32 + the MoE aux (0 without MoE).
     labels == -1 is masked. Returns (total, {"loss", "aux"}).
 
     Two implementations, as in the JAX twin: the default takes
@@ -99,7 +100,9 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda"):
-    """Empty KV caches on ``device``; ``cuda`` without a card raises."""
+    """Empty decode state on ``device``: a KV cache for each attention layer
+    (a ring of the window for LOCAL), the recurrence h (fp32) and conv tail
+    for each RG-LRU layer. ``cuda`` without a card raises."""
     return _stack(cfg).init_state(batch, max_len, cdtype(cfg),
                                   resolve_device(device))
 

@@ -1,6 +1,6 @@
-"""Serve a dense decoder with batched requests: prefill + greedy decode
-through the KV-cache serve path. The twin of the JAX package's
-``examples/serve.py``.
+"""Serve a decoder with batched requests: prefill + greedy decode through
+the cached serve path (KV caches, and the RG-LRU layers' recurrence state).
+The twin of the JAX package's ``examples/serve.py``.
 
     python -m repro_torch.serve --arch llama-65b --layers 10 --batch 4 \\
         --prompt-len 2048 --gen 16                # full width, on the card

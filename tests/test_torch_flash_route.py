@@ -80,6 +80,23 @@ def test_fp32_route_takes_any_stride(make):
         == "flash_attention_dkv"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [8, 128, 136, 192, 200, 256])
+def test_head_dims_up_to_256_pass_the_wrapper(hd, dtype):
+    """Multiples of 8 from 8 to 256 reach a kernel on either route (the
+    instances past 128 split the output's head_dim into two passes)."""
+    q, k, v = _qkv(dtype, hd)
+    fa._check(q, k, v)
+    assert fa._entry("fwd", q=q, k=k, v=v).startswith("flash_attention_fwd")
+
+
+@pytest.mark.parametrize("hd", [264, 100, 4])
+def test_other_head_dims_raise(hd):
+    q, k, v = _qkv(torch.bfloat16, hd)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa._check(q, k, v)
+
+
 def test_cpu_tensors_take_the_plain_version():
     """A bf16 CPU tensor TMA could not read still runs: the CPU path is the
     plain version, and no kernel launches."""

@@ -34,6 +34,9 @@ CASES = [
     (3, 32, 32, 2, 2, 128, "bfloat16", 8, 0.0, 0),
     (2, 24, 56, 4, 2, 32, "float32", 20, 0.0, 32),
     (1, 300, 300, 6, 2, 96, "bfloat16", 0, 0.0, 0),
+    (1, 64, 64, 10, 1, 256, "float32", 16, 0.0, 0),     # head_dim 256: two
+    (1, 24, 56, 16, 8, 256, "float32", 0, 50.0, 32),     # output passes
+    (2, 40, 40, 4, 2, 256, "bfloat16", 0, 0.0, 0),
 ]
 
 
@@ -82,7 +85,7 @@ def test_flash_kernel_strided_inputs(cuda):
 
 @pytest.mark.gpu
 def test_flash_kernel_rejects_wide_heads(cuda):
-    q = torch.zeros((1, 8, 2, 136), device=cuda)
+    q = torch.zeros((1, 8, 2, 264), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, q, q)
 
@@ -159,7 +162,7 @@ def test_flash_bwd_strided_inputs_through_autograd(cuda):
 
 @pytest.mark.gpu
 def test_flash_bwd_rejects_wide_heads(cuda):
-    q = torch.zeros((1, 8, 2, 136), device=cuda)
+    q = torch.zeros((1, 8, 2, 264), device=cuda)
     lse = torch.zeros((1, 8, 2, 1), device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_bwd(q, q, q, q, lse, q)
@@ -171,7 +174,8 @@ def test_flash_bwd_rejects_wide_heads(cuda):
 # order), rows summing to 1 within 2e-2
 # The bf16 (sm90) route's own cases, as chip_smoke.py's SM90_SWEEP: tiles
 # cut by sq and sk (200; 24 queries over 56 keys at q_offset 32), GQA m 1,
-# 2, 3, 4, 8, head_dim 8 to 128, window and softcap.
+# 2, 3, 4, 8, 10, head_dim 8 to 256 (past 128 the kernels run the output's
+# head_dim in two passes), window and softcap.
 # b, sq, sk, nq, nkv, hd, window, softcap, q_offset
 SM90_CASES = [
     (2, 200, 200, 8, 8, 64, 0, 0.0, 0),
@@ -182,6 +186,10 @@ SM90_CASES = [
     (1, 300, 300, 6, 2, 96, 0, 0.0, 0),
     (1, 256, 256, 32, 4, 128, 64, 30.0, 0),
     (1, 130, 130, 4, 4, 96, 0, 20.0, 0),
+    (1, 64, 64, 10, 1, 256, 32, 0.0, 0),       # recurrentgemma's heads
+    (1, 130, 130, 16, 8, 256, 0, 50.0, 0),     # gemma2-9b's heads, softcap
+    (2, 24, 56, 10, 1, 256, 20, 0.0, 32),
+    (1, 100, 100, 4, 2, 200, 0, 20.0, 0),      # hd 200: chunks past hd
 ]
 
 
