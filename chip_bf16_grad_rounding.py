@@ -10,14 +10,18 @@ fp32 version, rounded to bf16 like them, within 2.5e-2 and within
 1e-2 |want| + 1e-3 max |want|. At |grad| >= 4 one bf16 ulp exceeds
 2.5e-2, so two fp32 sums on either side of a rounding boundary differ
 there by more than the absolute bound. This script runs the backward on
-``chip_smoke.SM90_SWEEP``'s cases with the inputs the card tests draw
-(``tests/test_torch_gpu.py::_bwd_inputs`` for each seed given, 5 and 6 by
-default: the dq and dk/dv tests' seeds), evaluates the same gradients in
-float64 from the same bf16 inputs, and prints for each gradient the
-largest |kernel - plain|, and for every element over 2.5e-2 the kernel's
-value, the plain version's, the float64 value and how far that sits from
-the nearest bf16 rounding boundary. It prints the card's name and power
-limit, and exits non-zero without a card.
+``chip_smoke.SM90_SWEEP``'s cases (or, with ``--family``, on
+``chip_smoke.FAMILY_ATTN``'s causal shapes that run the backward) with the
+inputs the card tests draw (``tests/test_torch_gpu.py::_bwd_inputs`` for
+each seed given, 5 and 6 by default: the dq and dk/dv tests' seeds),
+evaluates the same gradients in float64 from the same bf16 inputs
+(``chip_smoke.grads_float64``), and prints for each gradient the largest
+|kernel - plain|, and for every element over 2.5e-2 the kernel's value,
+the plain version's, the float64 value and how far that sits from the
+nearest bf16 rounding boundary. It prints the card's name and power limit,
+and exits non-zero without a card.
+
+    python3 chip_bf16_grad_rounding.py --family --seed 0 1 2 3
 """
 import argparse
 import math
@@ -28,40 +32,11 @@ import sys
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def grads64(torch, q, k, v, do, lse, delta, *, causal, window, softcap, scale,
-            q_offset):
-    """dq, dk, dv in float64 from the bf16 inputs and the fp32 LSE and D the
-    kernels get: the plain version's arithmetic (``ref._p_ds``) with every
-    step in float64 and -inf for a masked score."""
-    b, sq, nq, hd = q.shape
-    sk, nkv = k.shape[1], k.shape[2]
-    m = nq // nkv
-    qr = q.double().reshape(b, sq, nkv, m, hd)
-    dor = do.double().reshape(b, sq, nkv, m, hd)
-    s = torch.einsum("bqgmh,bkgh->bgmqk", qr, k.double()) * scale
-    dcap = 1.0
-    if softcap:
-        t = torch.tanh(s / softcap)
-        s, dcap = softcap * t, 1.0 - t * t
-    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep &= qpos >= kpos
-    if window:
-        keep &= qpos - kpos < window
-    s = torch.where(keep, s, -math.inf)
-    p = torch.exp(s - lse.double().permute(0, 2, 3, 1)[..., None])
-    dp = torch.einsum("bqgmh,bkgh->bgmqk", dor, v.double())
-    ds = p * (dp - delta.double().permute(0, 2, 3, 1)[..., None]) * dcap * scale
-    return (torch.einsum("bgmqk,bkgh->bqgmh", ds, k.double()).reshape(q.shape),
-            torch.einsum("bgmqk,bqgmh->bkgh", ds, qr),
-            torch.einsum("bgmqk,bqgmh->bkgh", p, dor))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, nargs="+", default=[5, 6])
+    ap.add_argument("--family", action="store_true",
+                    help="FAMILY_ATTN's backward shapes instead of SM90_SWEEP")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         sys.exit("chip_bf16_grad_rounding: src/repro_torch is not beside this script")
@@ -70,7 +45,7 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_bf16_grad_rounding: torch.cuda.is_available() is false")
-    from chip_smoke import SM90_SWEEP
+    from chip_smoke import FAMILY_ATTN, SM90_SWEEP, grads_float64
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
@@ -78,8 +53,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
+    cases = SM90_SWEEP
+    if args.family:  # (b, sq, sk, nq, nkv, hd, window, softcap, q_offset)
+        cases = [(b, s, s, nq, nkv, hd, w, cap, 0)
+                 for b, s, nq, nkv, hd, w, cap, _, backward, _ in FAMILY_ATTN if backward]
     for seed in args.seed:
-        for case in SM90_SWEEP:
+        for case in cases:
             b, sq, sk, nq, nkv, hd, window, softcap, q_offset = case
             gen = torch.Generator(dev).manual_seed(seed)  # as _bwd_inputs draws them
             q, k, v, do = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -89,8 +68,9 @@ def main(argv=None):
             out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
             got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
             want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
-            exact = grads64(torch, q, k, v, do, lse, ref.flash_attention_delta(out, do, lse),
-                            scale=1.0 / math.sqrt(hd), **kw)
+            exact = grads_float64(torch, q, k, v, do, lse,
+                                  ref.flash_attention_delta(out, do, lse),
+                                  scale=1.0 / math.sqrt(hd), **kw)
             for name, g, w, e in zip(("dq", "dk", "dv"), got, want, exact):
                 g, w = g.double(), w.double()
                 diff = (g - w).abs()

@@ -83,20 +83,33 @@ Phases, each fatal on failure:
  13. the other families: the flash kernels at head_dim 256 (``HD256``:
      recurrentgemma-2b's local layer at s 2048 and 4096, gemma2-9b's) in
      bf16 and fp32, and at the families' own bf16 shapes (``FAMILY_ATTN``:
-     granite-moe-1b-a400m's attention at b 4, forward and backward, and
-     recurrentgemma-2b's serve prefill at b 4, forward), against their plain
-     versions, twice bit-equal, the first shape timed beside SDPA and the
-     bound; then, for granite-moe-1b-a400m
-     (full width and depth) and recurrentgemma-2b (full width; 26 layers
-     served, 9 trained and pipelined), ``FAMILIES``: ``launch.train`` (5
-     steps, Adam), the pipelined step (1f1b and bpipe, 3 steps each) and
-     ``serve`` (b 4, prompt 2048, 16 new tokens): step ms, tokens/s, MFU
-     over the active parameters, peak memory, stash peaks against the
+     granite-moe-1b-a400m's attention at b 4, forward and backward,
+     recurrentgemma-2b's serve prefill at b 4, forward, whisper-small's
+     decoder at b 8 x 448, forward and backward, and its serve prefill at
+     b 4 x 432, forward, internvl2-1b's GQA group of 7 at b 4 x 2048 and
+     its pipelined microbatch at b 1 x 1792, forward and backward), against
+     their plain versions, twice bit-equal (a bf16 grad element past 2.5e-2
+     one ulp off only at a rounding tie that the float64 gradient
+     witnesses, on the rows so marked), HD256's first shape and
+     ``FAMILY_TIMED`` timed beside SDPA and the bound;
+     then ``FAMILIES``: granite-moe-1b-a400m (full width and depth),
+     recurrentgemma-2b (full width; 26 layers served, 9 trained and
+     pipelined), xlstm-125m (mLSTM and sLSTM, full width and depth),
+     whisper-small (12 encoder layers over 1500 frames, 12 decoder layers
+     of 448 tokens) and internvl2-1b (256 prefix embeddings before the
+     tokens): ``launch.train`` (5 steps, Adam), the pipelined step (1f1b
+     and bpipe, 3 steps each, 1 for xlstm-125m; whisper-small has none, as
+     in the JAX twin, internvl2-1b's is text-only) and ``serve`` (b 4, 16
+     new tokens): step ms, tokens/s, MFU over the active parameters (an
+     encoder-decoder's encoder and cross attention as ``core/flops``
+     counts them), peak memory, stash peaks against the
      compiled plan's, swaps, flash launch counts, and a profile of each
-     split into GEMMs, flash, elementwise work and the RG-LRU scan and MoE
-     dispatch and combine ranges; checks 1f1b == bpipe losses bit for bit,
-     finite losses, the peaks, the launches, and each family at a small
-     fp32 size on the card against the CPU (loss, grads, serve logits and
+     split into GEMMs, flash, elementwise work and the RG-LRU scan, MoE
+     dispatch and combine, mLSTM chunk, sLSTM scan and whisper encoder
+     ranges; checks 1f1b == bpipe losses bit for bit, finite losses, the
+     peaks, every path's flash launches equal to its attention layers
+     times its passes (0 on xlstm-125m), and each family at a small fp32
+     size on the card against the CPU (loss, grads, serve logits and
      tokens).
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
@@ -211,17 +224,46 @@ HD256 = [(1, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b local layer"),
          (1, 2048, 16, 8, 256, 4096, 50.0, "gemma2-9b layer")]
 # the shapes the families' main paths give the kernels beside HD256's, in
 # bf16, their compute dtype: b, s, nq, nkv, hd, window, softcap, label,
-# backward too (causal). Granite trains and serves at b 4 (its pipelined
-# microbatches are b 1 of the same instance); recurrentgemma serves at b 4,
-# forward only, and trains at HD256's first shape.
-FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serve", True),
-               (4, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b serve prefill", False)]
+# backward too, and the grads' bar (causal). Granite trains and serves at b
+# 4 (its pipelined microbatches are b 1 of the same instance);
+# recurrentgemma serves at b 4, forward only, and trains at HD256's first
+# shape. whisper-small's decoder trains at b 8 x 448 (3.5 tiles of 128
+# query rows) and prefills at b 4 x 432 (6.75 tiles of 64 keys).
+# internvl2-1b trains and serves at b 4 x 2048 and runs its pipelined
+# microbatches at b 1 x 1792 text tokens, with a GQA group of 7. The bar:
+# "flat" is phases 2-3's (2.5e-2 and the element bound); "ulp" lets an
+# element past 2.5e-2 differ by one bf16 ulp only where the gradient's
+# float64 value witnesses a rounding tie (``grad_agree_ulp``): dK and dV sum
+# the group's heads x 2048 rows and reach |want| >= 4, where one ulp is
+# 3.125e-2 (ROADMAP queue C). FAMILY_TIMED's shapes are timed beside SDPA
+# and the bound.
+FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serve", True, "ulp"),
+               (4, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b serve prefill", False, "ulp"),
+               (8, 448, 12, 12, 64, 0, 0.0, "whisper-small decoder", True, "flat"),
+               (4, 432, 12, 12, 64, 0, 0.0, "whisper-small serve prefill", False, "flat"),
+               (4, 2048, 14, 2, 64, 0, 0.0, "internvl2-1b", True, "ulp"),
+               (1, 1792, 14, 2, 64, 0, 0.0, "internvl2-1b pipelined microbatch", True, "ulp")]
+FAMILY_TIMED = ("whisper-small decoder", "internvl2-1b")
 # Each family's paths: train (launch.train, Adam), the pipelined step
 # (PipelineExecutor, 1f1b and bpipe, remat "flash", no Adam) and serve.
 # granite-moe-1b-a400m at full width and depth. recurrentgemma-2b at full
 # width: serving at all 26 layers; training and the pipelined step at 9
 # (three pattern blocks): with Adam, params, grads and moments of 26 layers
 # come to about 46 GiB before activations and the 2048 x 256000 logits.
+# xlstm-125m, whisper-small and internvl2-1b at full width and depth.
+# whisper-small's encoder takes ENCODER_FRAMES (1500, its 30 s window) frames
+# a row, its decoder 448 tokens (its published text context); it has no
+# pipelined path (the JAX twin has none). internvl2-1b's rows are 256 prefix
+# embeddings and 1792 tokens (make_batch cuts the text); it pipelines
+# text-only, as the twin. xlstm-125m's sLSTM runs a Python loop over time,
+# about 20 launches a time step forward and 25 autograd nodes backward, so
+# the host sets its step: 15.24 s a train step and 73-78 s a pipelined one
+# (PERF.md §6). To keep the script near half its time limit its pipelined
+# step runs 1 step an arm, not 3, and ``profile_seq`` profiles its train
+# step at 64 tokens a row, its pipelined step at 16 and its prefill at 128
+# (the launches a time step do not change with the length; the profiler
+# takes tens of microseconds on the host for each event it returns).
+SLICE_FAMILIES = ("xlstm-125m", "whisper-small", "internvl2-1b")
 FAMILIES = [
     dict(arch="granite-moe-1b-a400m",
          train=dict(layers=24, batch=4, seq=2048, steps=5),
@@ -231,6 +273,19 @@ FAMILIES = [
          train=dict(layers=9, batch=1, seq=2048, steps=5),
          pipe=dict(layers=9, p=3, micro=1, m=4, seq=2048, steps=3),
          serve=dict(layers=26, batch=4, prompt=2048, gen=16)),
+    dict(arch="xlstm-125m",
+         train=dict(layers=12, batch=4, seq=2048, steps=5),
+         pipe=dict(layers=12, p=4, micro=1, m=4, seq=2048, steps=1),
+         serve=dict(layers=12, batch=4, prompt=2048, gen=16),
+         profile_seq=dict(train=64, pipe=16, serve=128)),
+    dict(arch="whisper-small",
+         train=dict(layers=12, batch=8, seq=448, steps=5),
+         pipe=None,
+         serve=dict(layers=12, batch=4, prompt=432, gen=16)),
+    dict(arch="internvl2-1b",
+         train=dict(layers=24, batch=4, seq=2048, steps=5),
+         pipe=dict(layers=24, p=4, micro=1, m=4, seq=2048, steps=3),
+         serve=dict(layers=24, batch=4, prompt=1792, gen=16)),
 ]
 
 
@@ -474,20 +529,42 @@ PROFILE_KINDS = [
 
 
 # the port's profiler ranges -> the parts of a step they time (device time
-# of the kernels inside, forward range and backward node)
+# of the kernels inside, forward range and backward node). A range without a
+# backward node of its own (None) is charged the backward nodes of the
+# autograd ops inside it, matched by their sequence numbers.
 PROFILE_RANGES = [
     ("RG-LRU scan", ("rglru_scan", "_LinearScanBackward")),
     ("MoE dispatch", ("moe_dispatch", "IndexPutBackward0")),
     ("MoE combine", ("moe_combine", "IndexSelectBackward0")),
+    ("mLSTM chunks", ("mlstm_chunk", None)),
+    ("sLSTM scan", ("slstm_scan", None)),
+    ("whisper encoder", ("encoder", None)),
 ]
+BACKWARD_NODE = "autograd::engine::evaluate_function: "
+
+
+def backward_of_range_us(torch, prof, key):
+    """Device time (us) of the backward nodes of the autograd ops inside
+    every forward range ``key``: a backward node carries its forward op's
+    sequence number."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.events()
+    seqs, stack = set(), [e for e in events if e.key == key and e.device_type == cpu]
+    while stack:
+        e = stack.pop()
+        stack.extend(e.cpu_children)
+        if e.sequence_nr >= 0 and not e.key.startswith("autograd::"):
+            seqs.add(e.sequence_nr)
+    return sum(e.device_time_total for e in events
+               if e.key.startswith(BACKWARD_NODE) and e.sequence_nr in seqs)
 
 
 def profile_window(torch, label, fn, top=8):
     """Run ``fn`` under torch.profiler and print the device-time breakdown:
     the kernels' summed device time against the window's wall time (the
     device's busy share), the top kernels by device time, and the device
-    time inside each of ``PROFILE_RANGES`` (those kernels are counted in
-    their kinds as well)."""
+    time inside each of ``PROFILE_RANGES`` met in the window (those kernels
+    are counted in their kinds as well)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -495,15 +572,18 @@ def profile_window(torch, label, fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    t_parse = time.perf_counter()
     # the port's own ranges show on the device timeline as annotations too:
     # they are not kernels
-    ranges = {k for _, keys in PROFILE_RANGES for k in keys}
-    kernels = [e for e in prof.key_averages()
+    ranges = {k for _, keys in PROFILE_RANGES for k in keys if k}
+    events = prof.key_averages()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     print(f"[profile] {label}: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %)")
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %), "
+          f"{sum(e.count for e in events)} events")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"{100 * e.self_device_time_total / max(busy_us, 1):5.1f} % "
@@ -516,20 +596,25 @@ def profile_window(torch, label, fn, top=8):
     print(f"[profile] {label} by kind: " + ", ".join(
         f"{k} {v / 1e3:.3f} ms ({100 * v / max(busy_us, 1):.1f} %)"
         for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
-    events = prof.key_averages()
     parts = []
-    for name, keys in PROFILE_RANGES:
+    for name, (fwd, bwd) in PROFILE_RANGES:
         # a backward node shows as "autograd::engine::evaluate_function: X"
         # around "X": take the larger of the two, not both
         # (the host-side event: its device time is its kernels', where the
         # device-side annotation of the same name spans the gaps too)
         us = [max([e.device_time_total for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU
-                   and (e.key == k or e.key.endswith(": " + k))] + [0.0])
-              for k in keys]
+                   and k and (e.key == k or e.key.endswith(": " + k))] + [0.0])
+              for k in (fwd, bwd)]
+        if not us[0] and not us[1]:
+            continue
+        if bwd is None:
+            us[1] = backward_of_range_us(torch, prof, fwd)
         parts.append(f"{name} {sum(us) / 1e3:.3f} ms ({100 * sum(us) / max(busy_us, 1):.1f} "
                      f"%; forward {us[0] / 1e3:.3f}, backward {us[1] / 1e3:.3f})")
-    print(f"[profile] {label} ranges (inside the kinds above): " + ", ".join(parts))
+    print(f"[profile] {label} ranges (inside the kinds above): "
+          + (", ".join(parts) or "none met")
+          + f"; the profile read in {time.perf_counter() - t_parse:.1f} s")
 
 
 def counts_zero(fa):
@@ -571,14 +656,30 @@ def n_active(cfg):
 
 
 def model_flops(cfg, seq, tokens):
-    """(6 N_active + 6 sum(attn_keys) d) tokens."""
-    return (6 * n_active(cfg) + 6 * sum(attn_keys(cfg, seq)) * cfg.d_model) * tokens
+    """(6 N_active + 6 sum(attn_keys) d) tokens. An encoder-decoder's encoder
+    and cross-attention parameters (``param_count`` less that of the same
+    config without an encoder) leave N_active, and their work is counted as
+    3x ``core.flops.model_flops_fwd``'s encoder and cross-attention terms
+    (the encoder's layers at ENCODER_FRAMES a row, the cross K/V once a
+    frame, Q, O and the scores once a token)."""
+    from repro_torch.core.flops import model_flops_fwd
+    n, d = n_active(cfg), cfg.d_model
+    rows = tokens // seq
+    f = 0
+    if cfg.is_encdec:
+        plain = dataclasses.replace(cfg, encoder_layers=0)
+        n -= cfg.param_count() - plain.param_count()
+        f = 3 * (model_flops_fwd(cfg, rows, seq) - model_flops_fwd(plain, rows, seq))
+    return f + (6 * n + 6 * sum(attn_keys(cfg, seq)) * d) * tokens
 
 
 MFU_FORMULA = ("(6 N_active + 6 sum over attention layers of min(s, window) d) "
                "tokens / step time / 989e12, N_active as core/flops.model_flops_6nd: "
                "param_count() less the experts a token's router does not pick "
-               "(E - top_k a MoE layer) and the embedding table, the unembedding kept")
+               "(E - top_k a MoE layer) and the embedding table, the unembedding kept; "
+               "an encoder-decoder's encoder and cross-attention parameters out of "
+               "N_active and their work 3x core/flops.model_flops_fwd's (1500 frames "
+               "a row; encoder scores with its attention layers' causal half)")
 
 
 def train_path(torch, dev, smi):
@@ -1525,39 +1626,91 @@ def bf16_ulp(torch, w):
     return torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
 
 
-def grad_agree_ulp(torch, got, want, dtype):
-    """``grad_agree``, but a bf16 element's flat 2.5e-2 cap is raised to one
-    bf16 ulp of |want| where that is larger (|want| >= 4: the ulp is 2**-5
-    there and 2**-4 from 8). Two bf16 roundings of the same fp32 sum taken in
-    another order can differ by one ulp, so no kernel could hold 2.5e-2
-    there; the element bound G_RTOL |want| + G_ATOL max|want| stays. At
-    head_dim 256 with 10 query heads a kv head, dK and dV sum 10 x 2048
-    rows and reach |want| > 4. Returns (max abs error, ok, the count of
-    elements past 2.5e-2)."""
+def grads_float64(torch, q, k, v, do, lse, delta, *, causal, window, softcap,
+                  scale, q_offset=0):
+    """dq, dk, dv in float64 from the bf16 inputs and the fp32 LSE and D the
+    kernels get: the plain version's arithmetic (``ref._p_ds``) with every
+    step in float64 and -inf for a masked score."""
+    b, sq, nq, hd = q.shape
+    sk, nkv = k.shape[1], k.shape[2]
+    m = nq // nkv
+    qr = q.double().reshape(b, sq, nkv, m, hd)
+    dor = do.double().reshape(b, sq, nkv, m, hd)
+    s = torch.einsum("bqgmh,bkgh->bgmqk", qr, k.double()) * scale
+    dcap = 1.0
+    if softcap:
+        t = torch.tanh(s / softcap)
+        s, dcap = softcap * t, 1.0 - t * t
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= qpos >= kpos
+    if window:
+        keep &= qpos - kpos < window
+    s = torch.where(keep, s, -math.inf)
+    p = torch.exp(s - lse.double().permute(0, 2, 3, 1)[..., None])
+    del s
+    dp = torch.einsum("bqgmh,bkgh->bgmqk", dor, v.double())
+    ds = p * (dp - delta.double().permute(0, 2, 3, 1)[..., None]) * dcap * scale
+    del dp
+    return (torch.einsum("bgmqk,bkgh->bqgmh", ds, k.double()).reshape(q.shape),
+            torch.einsum("bgmqk,bqgmh->bkgh", ds, qr),
+            torch.einsum("bgmqk,bqgmh->bkgh", p, dor))
+
+
+# An element past 2.5e-2 is a rounding tie when its float64 value lies
+# within TIE_ULPS bf16 ulps of the midpoint between the kernel's and the
+# plain version's values. Over 75 such elements at FAMILY_ATTN's backward
+# shapes (``chip_bf16_grad_rounding.py --family``, seeds 0-15) the float64
+# value lay at most 0.0102 ulp from it (5.2e-4 at |grad| 8.8: the fp32
+# sums' own error); a one-ulp fault would put it anywhere in the half ulp,
+# so 1/32 lets one faulty element in 16 through.
+TIE_ULPS = 1 / 32
+
+
+def grad_agree_ulp(torch, got, want, dtype, exact):
+    """``grad_agree``, but a bf16 element past the flat 2.5e-2 may differ by
+    one bf16 ulp of |want| (|want| >= 4: the ulp is 2**-5 there and 2**-4
+    from 8) where ``exact()``, the gradient in float64
+    (``grads_float64``), lies between the two values and within TIE_ULPS
+    ulps of their midpoint: two bf16 roundings of the same fp32 sum taken
+    in another order differ by one ulp there, so no kernel could hold
+    2.5e-2. The element bound G_RTOL |want| + G_ATOL max|want| stays.
+    Returns (max abs error, ok, the count of elements past 2.5e-2, the
+    largest distance of such an element's float64 value from the midpoint
+    in ulps)."""
     if dtype != "bfloat16":
-        return (*grad_agree(torch, got, want, dtype), 0)
+        return (*grad_agree(torch, got, want, dtype), 0, 0.0)
     g, w = got.float(), want.float()
     e = (g - w).abs()
     cap = torch.clamp_min(bf16_ulp(torch, w), 2.5e-2)
+    past = e > 2.5e-2
     ok = (bool(torch.isfinite(got).all()) and bool((e <= cap).all())
           and bool((e <= G_RTOL * w.abs() + G_ATOL * w.abs().max()).all()))
-    return float(e.max()), ok, int((e > 2.5e-2).sum())
+    tie = 0.0
+    if ok and bool(past.any()):
+        x, gp, wp = exact()[past], g[past].double(), w[past].double()
+        tie = float(((x - (gp + wp) / 2).abs() / (gp - wp).abs()).max())
+        ok = tie <= TIE_ULPS and bool(((x - gp) * (x - wp) <= 0).all())
+    return float(e.max()), ok, int(past.sum()), tie
 
 
 def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
     """The three flash kernels at head_dim 256 (``HD256``, bf16 and fp32)
     and at the families' own bf16 shapes (``FAMILY_ATTN``) against their
-    plain versions, each run twice bit-equal, then HD256's first shape
-    timed (forward by CUDA events, dq and dk/dv by the profiler's device
-    time per launch) beside the plain versions, SDPA forward and backward
-    (the window does not cut at s 2048, so causal SDPA computes the same
-    function; K/V expanded to the query heads before the clock) and the
-    bound. Returns (the timed row by kernel, max errors)."""
-    errs = {"flash_attention_fwd": 0.0, "flash_attention_dq": 0.0,
-            "flash_attention_dkv": 0.0}
-    cases = ([(*c, ("bfloat16", "float32"), True) for c in HD256]
-             + [(*c[:-1], ("bfloat16",), c[-1]) for c in FAMILY_ATTN])
-    for b, s, nq, nkv, hd, w, cap, label, dtypes, backward in cases:
+    plain versions, each run twice bit-equal (HD256 and the "ulp" rows with
+    one bf16 ulp allowed past the flat 2.5e-2 at a rounding tie, the "flat"
+    rows at phases 2-3's bars), then HD256's first shape and FAMILY_TIMED's
+    timed (``time_attention``), each timed row with the errors measured at
+    its own shape. Returns (the timed rows by label, max errors over every
+    shape)."""
+    names = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    errs = dict.fromkeys(names, 0.0)
+    errs_at = {}  # (label, dtype) -> {kernel: max error at that shape}
+    cases = ([(*c, ("bfloat16", "float32"), True, False) for c in HD256]
+             + [(*c[:8], ("bfloat16",), c[8], c[9] == "flat") for c in FAMILY_ATTN])
+    for b, s, nq, nkv, hd, w, cap, label, dtypes, backward, flat in cases:
         for dtype in dtypes:
             q, k, v = qkv(b, s, s, nq, nkv, hd, dtype)
             do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
@@ -1575,18 +1728,34 @@ def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
             o_err, lse_err, ok = agree(torch, out, want_out, lse, want_lse, dtype)
             if backward:
                 want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **kw)
-            gerr = [grad_agree_ulp(torch, g_, w_, dtype) for g_, w_ in zip(got, want)]
+            exact64 = []
+
+            def exact(i):
+                if not exact64:
+                    exact64.extend(grads_float64(
+                        torch, q, k, v, do, lse, ref.flash_attention_delta(out, do, lse),
+                        scale=1.0 / math.sqrt(hd), **kw))
+                return exact64[i]
+
+            gerr = [grad_agree_ulp(torch, g_, w_, dtype, lambda i=i: exact(i))
+                    for i, (g_, w_) in enumerate(zip(got, want))]
+            if flat:  # the tie distances are printed, the flat bar decides
+                gerr = [(e[0], grad_agree(torch, g_, w_, dtype)[1], *e[2:])
+                        for e, g_, w_ in zip(gerr, got, want)]
             ok = ok and same and all(e[1] for e in gerr)
             bf16 = dtype == "bfloat16"
             text = (f"O {o_err:.3e} LSE {lse_err:.3e} (within "
                     + (f"{O_ATOL} + {O_RTOL}|O|, LSE {LSE_TOL})" if bf16
                        else f"{tol(dtype)})"))
             if backward:
+                cap_text = ("2.5e-2" if flat else "2.5e-2, or one bf16 ulp of |want| "
+                            f"at a float64 tie within {TIE_ULPS:.4g} ulp")
                 text += (f", dq {gerr[0][0]:.3e} dk {gerr[1][0]:.3e} dv "
                          f"{gerr[2][0]:.3e} (within "
-                         + (f"{G_RTOL}|want| + {G_ATOL} max|want| and max(2.5e-2, "
-                            f"one bf16 ulp of |want|); elements past 2.5e-2: dq "
-                            f"{gerr[0][2]} dk {gerr[1][2]} dv {gerr[2][2]})" if bf16
+                         + (f"{G_RTOL}|want| + {G_ATOL} max|want| and {cap_text}; "
+                            f"elements past 2.5e-2: dq {gerr[0][2]} dk {gerr[1][2]} "
+                            f"dv {gerr[2][2]}, their float64 values at most "
+                            f"{max(e[3] for e in gerr):.3g} ulp from the tie)" if bf16
                             else f"{G_ATOL32} + {G_RTOL32}|want|)"))
             else:
                 text += ", forward only"
@@ -1594,17 +1763,35 @@ def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
                   f"w{w} cap{cap} route {fa.route(q.dtype)}: max_abs_err {text}; "
                   f"two runs bit-equal {same} {'ok' if ok else 'FAIL'}")
             if not ok:
-                fail(f"a flash kernel disagrees with its plain version at head_dim "
-                     f"{hd}: {label} {dtype}")
-            errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"], o_err, lse_err)
+                fail(f"a flash kernel disagrees with its plain version at a family "
+                     f"shape: {label} {dtype}")
+            here = {"flash_attention_fwd": max(o_err, lse_err)}
             if backward:
-                errs["flash_attention_dq"] = max(errs["flash_attention_dq"], gerr[0][0])
-                errs["flash_attention_dkv"] = max(errs["flash_attention_dkv"],
-                                                  gerr[1][0], gerr[2][0])
-            del q, k, v, do, out, lse, again, got, got2, want_out, want_lse, want
+                here["flash_attention_dq"] = gerr[0][0]
+                here["flash_attention_dkv"] = max(gerr[1][0], gerr[2][0])
+            errs_at[label, dtype] = here
+            for name, e in here.items():
+                errs[name] = max(errs[name], e)
+            del q, k, v, do, out, lse, again, got, got2, want_out, want_lse, want, exact64
             torch.cuda.empty_cache()
 
-    b, s, nq, nkv, hd, w, cap, label = HD256[0]
+    timed = [HD256[0]] + [c[:8] for c in FAMILY_ATTN if c[7] in FAMILY_TIMED]
+    rows = {c[7]: time_attention(torch, F, fa, ref, qkv, gen, dev, smi, *c)
+            for c in timed}
+    for label, row in rows.items():
+        for name, r in row.items():
+            r["max_abs_err"] = errs_at[label, "bfloat16"][name]
+    return rows, errs
+
+
+def time_attention(torch, F, fa, ref, qkv, gen, dev, smi, b, s, nq, nkv, hd, w,
+                   cap, label):
+    """The three kernels at one causal bf16 shape: the forward by CUDA
+    events, dq and dk/dv by the profiler's device time per launch, each
+    beside its plain version, the bound, and SDPA forward and backward (a
+    window that does not cut computes SDPA's causal function; K/V expanded
+    to the query heads before the clock). Returns {kernel: numbers}."""
+    assert not w or w >= s, "SDPA's causal mask has no window"
     q, k, v = qkv(b, s, s, nq, nkv, hd, "bfloat16")
     do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
     kw = dict(causal=True, window=w, softcap=cap)
@@ -1614,9 +1801,9 @@ def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
     fwd_ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, **kw), 10)
     fwd_plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3,
                         warmup=1)
+    sm90 = ["flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"]
     split = kernel_device_ms(
-        torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw),
-        ["flash_dq_sm90_kernel", "flash_dkv_sm90_kernel"])
+        torch, lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, **kw), sm90)
     delta = ref.flash_attention_delta(out, do, lse)
     plain = {name: time_ms(torch, lambda f=f: f(q, k, v, lse, delta, do, **kw), 3,
                            warmup=1)
@@ -1633,21 +1820,20 @@ def family_kernels(torch, F, fa, ref, qkv, gen, dev, smi):
     row = {"flash_attention_fwd": dict(ms=fwd_ms, plain_ms=fwd_plain,
                                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
                                        library_ms=sdpa_ms)}
-    for name, kname in (("flash_attention_dq", "flash_dq_sm90_kernel"),
-                        ("flash_attention_dkv", "flash_dkv_sm90_kernel")):
+    for name, kname in zip(("flash_attention_dq", "flash_attention_dkv"), sm90):
         row[name] = dict(ms=split[kname], plain_ms=plain[name],
                          bound_ms=bounds[name][0], bound_by=bounds[name][1],
                          library_ms=sdpa_bwd_ms)
     for name, r in row.items():
-        r.update(shape=shape, max_abs_err=errs[name])
-        print(f"[time] {name} head_dim 256 {shape} bf16: kernel {r['ms']:.4f} ms, "
+        r["shape"] = shape
+        print(f"[time] {name} {shape} bf16: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), sdpa causal "
               f"{'forward' if name == 'flash_attention_fwd' else 'backward (dq, dk, dv together)'} "
               f"{r['library_ms']:.4f} ms; card {smi}")
     del q, k, v, do, out, lse, delta, kx, vx, qt, kt, vt, ot
     torch.cuda.empty_cache()
-    return row, errs
+    return row
 
 
 def family_train(torch, dev, smi, fam):
@@ -1658,6 +1844,7 @@ def family_train(torch, dev, smi, fam):
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train as launch_train
+    from repro_torch.models.model import ENCODER_FRAMES
     from repro_torch.train.steps import make_train_step
 
     t = fam["train"]
@@ -1675,9 +1862,13 @@ def family_train(torch, dev, smi, fam):
     tokens = t["batch"] * t["seq"]
     mfu = model_flops(cfg, t["seq"], tokens) / step_s / H100_PEAK_BF16
     total = torch.cuda.get_device_properties(0).total_memory
+    rows = (f" ({cfg.num_prefix_embeds} prefix embeddings + "
+            f"{t['seq'] - cfg.num_prefix_embeds} tokens)" if cfg.frontend == "vision"
+            else f", {cfg.encoder_layers} encoder layers over {ENCODER_FRAMES} frames "
+                 f"a row" if cfg.is_encdec else "")
     print(f"[family train] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
           f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} {cfg.dtype} "
-          f"attn={cfg.attn_impl}: b{t['batch']} x {t['seq']}, {t['steps']} steps; "
+          f"attn={cfg.attn_impl}: b{t['batch']} x {t['seq']}{rows}, {t['steps']} steps; "
           f"losses {[round(st['loss'], 6) for st in steps]}; step "
           f"{step_s * 1e3:.2f} ms (median of steps 3-5), {tokens / step_s:.1f} "
           f"tokens/s, MFU {100 * mfu:.2f} % (= {MFU_FORMULA}; N_active "
@@ -1692,16 +1883,18 @@ def family_train(torch, dev, smi, fam):
         fail(f"a {cfg.name} training loss or grad norm is not finite")
     if peak >= total:
         fail(f"peak memory {peak} is not under the card's {total}")
-    tcfg = dataclasses.replace(TrainConfig(), steps=t["steps"], seq_len=t["seq"])
+    seq = fam.get("profile_seq", {}).get("train", t["seq"])
+    tcfg = dataclasses.replace(TrainConfig(), steps=t["steps"], seq_len=seq)
     step_fn = make_train_step(cfg, tcfg)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
-        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), 0).items()}
+        cfg, DataConfig(batch=t["batch"], seq_len=seq), 0).items()}
     box = {"p": res["params"], "o": res["opt"]}
 
     def one_step():
         box["p"], box["o"], _ = step_fn(box["p"], box["o"], batch)
 
-    profile_window(torch, f"{cfg.name} train step", one_step, top=12)
+    profile_window(torch, f"{cfg.name} train step (b{t['batch']} x {seq})",
+                   one_step, top=12)
     del res, box, batch
     torch.cuda.empty_cache()
     return counts
@@ -1718,11 +1911,19 @@ def family_pipeline(torch, dev, smi, fam):
     from repro_torch.pipeline import PipelineExecutor
 
     t = fam["pipe"]
+    if t is None:
+        print(f"[family pipeline] {fam['arch']}: no pipelined step, skipped: the "
+              f"JAX twin has no encoder-decoder pipeline (its stages carry no "
+              f"encoder), and the port's PipelineExecutor raises for one")
+        return {}
     cfg = serve.config_for(fam["arch"], layers=t["layers"], attn_impl="flash")
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
     dc = DataConfig(batch=t["m"] * t["micro"], seq_len=t["seq"])
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(cfg, dc, i).items()}
                for i in range(t["steps"])]
+    seq = fam.get("profile_seq", {}).get("pipe", t["seq"])
+    profiled = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, dataclasses.replace(dc, seq_len=seq), 0).items()}
     out = {}
     for kind in ("1f1b", "bpipe"):
         ex = PipelineExecutor(cfg, ScheduleSpec(kind, t["p"], t["m"]),
@@ -1730,8 +1931,9 @@ def family_pipeline(torch, dev, smi, fam):
         out[kind] = pipelined_run(torch, dev, ex, params, batches, kind, smi,
                                   tag=f"{cfg.name} pipeline")
         if kind == "1f1b":
-            profile_window(torch, f"{cfg.name} pipelined step (1f1b)",
-                           lambda: ex.step(params, batches[0]), top=12)
+            profile_window(torch, f"{cfg.name} pipelined step (1f1b, m {t['m']} x "
+                           f"{t['micro']} x {profiled['tokens'].shape[1]})",
+                           lambda: ex.step(params, profiled), top=12)
         del ex
     a, b = out["1f1b"], out["bpipe"]
     p = t["p"]
@@ -1757,7 +1959,7 @@ def family_pipeline(torch, dev, smi, fam):
           f"arm {ok_launches} {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{cfg.name}: the pipelined step's peaks, losses or launches are wrong")
-    del params, batches
+    del params, batches, profiled
     torch.cuda.empty_cache()
     return {kind: arm["counts"] for kind, arm in out.items()}
 
@@ -1768,7 +1970,7 @@ def family_serve(torch, dev, smi, fam):
     from repro_torch import serve
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
-    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.train.steps import make_serve_step
 
     t = fam["serve"]
     cfg = serve.config_for(fam["arch"], layers=t["layers"], attn_impl="flash")
@@ -1777,13 +1979,17 @@ def family_serve(torch, dev, smi, fam):
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
     prompts = torch.randint(0, cfg.vocab_size, (t["batch"], t["prompt"]),
                             generator=torch.Generator(dev).manual_seed(1), device=dev)
+    front = serve.frontend_inputs(cfg, t["batch"], dev, frames=M.ENCODER_FRAMES)
     counts_zero(fa)
-    warm, res = [serve.serve(params, cfg, prompts, t["gen"]) for _ in range(2)]
+    warm, res = [serve.serve(params, cfg, prompts, t["gen"], **front) for _ in range(2)]
     counts = counts_read(fa)
+    npre = front["prefix_embeds"].shape[1] if "prefix_embeds" in front else 0
+    inputs = (f" after {npre} prefix embeddings" if npre else
+              f" over {front['enc_embeds'].shape[1]} encoder frames" if front else "")
     print(f"[family serve] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
           f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} {cfg.dtype} "
-          f"attn={cfg.attn_impl}: b{t['batch']} prompt {t['prompt']} gen {t['gen']}; "
-          f"prefill {res['prefill_s'] * 1e3:.2f} ms (first call "
+          f"attn={cfg.attn_impl}: b{t['batch']} prompt {t['prompt']}{inputs} gen "
+          f"{t['gen']}; prefill {res['prefill_s'] * 1e3:.2f} ms (first call "
           f"{warm['prefill_s'] * 1e3:.2f} ms), decode {res['decode_tok_s']:.2f} tok/s "
           f"({res['decode_s'] * 1e3:.2f} ms for {t['gen'] - 1} steps); peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
@@ -1802,32 +2008,37 @@ def family_serve(torch, dev, smi, fam):
         fail(f"{cfg.name} serve logits not finite")
     if not torch.equal(toks, warm["tokens"]):
         fail(f"two {cfg.name} serve runs of the same prompts gave different tokens")
-    b, sp, n_gen = t["batch"], t["prompt"], t["gen"]
-    state = M.init_decode_state(cfg, b, sp + n_gen, dev)
-    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    b, n_gen = t["batch"], t["gen"]
+    sp = fam.get("profile_seq", {}).get("serve", t["prompt"])
+    batch = {"tokens": prompts[:, :sp], **front}
+    state = M.init_decode_state(cfg, b, sp + n_gen + npre, dev)
+    serve_step = make_serve_step(cfg)
     box = {}
     with torch.inference_mode():
         def run_prefill():
-            box["logits"], box["state"] = prefill_step(params, {"tokens": prompts}, state)
+            box["logits"], box["state"], box["enc"] = M.prefill(params, batch, cfg, state)
 
         def run_decode():
             tok = torch.argmax(box["logits"], dim=-1).to(torch.int32)
             for i in range(n_gen - 1):
-                tok, _, box["state"] = serve_step(params, box["state"], tok, sp + i)
+                tok, _, box["state"] = serve_step(params, box["state"], tok,
+                                                  sp + npre + i, box["enc"])
 
-        profile_window(torch, f"{cfg.name} prefill", run_prefill)
+        profile_window(torch, f"{cfg.name} prefill (b{b} x {sp})", run_prefill)
         profile_window(torch, f"{cfg.name} decode ({n_gen - 1} steps)", run_decode)
-    del params, warm, res, state, box
+    del params, warm, res, state, box, front, batch
     torch.cuda.empty_cache()
     return counts
 
 
 def family_checks(torch, dev):
     """Each family at a small fp32 size, the card against the CPU on the
-    same params and inputs: the loss (1e-5) and grads (2e-4 + 1e-3|want|) of
+    same params and inputs (a VLM's prefix embeddings, an encoder-decoder's
+    16 frames): the loss (1e-5) and grads (2e-4 + 1e-3|want|) of
     ``make_loss_grad``, the serve loop's prefill and last decode logits
     (2e-4) and its greedy tokens (equal). The MoE routes on fp32 random
-    inputs, so no two router probabilities tie."""
+    inputs, so no two router probabilities tie; 32 tokens take xlstm-125m's
+    mLSTM through two chunks of 16."""
     from repro_torch import serve
     from repro_torch import tree as T
     from repro_torch.configs.base import TrainConfig
@@ -1842,7 +2053,9 @@ def family_checks(torch, dev):
         toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
         labels = toks[:, 1:].clone()
         labels[0, :4] = -1
-        batch = {"tokens": toks[:, :-1], "labels": labels}
+        cpu = torch.device("cpu")
+        batch = {"tokens": toks[:, :-1], "labels": labels,
+                 **serve.frontend_inputs(cfg, 2, cpu, frames=16)}
         lg = make_loss_grad(cfg, TrainConfig())
         c_loss, c_grads = lg(cpu_params, batch)
         d_loss, d_grads = lg(params, {k: v.to(dev) for k, v in batch.items()})
@@ -1852,8 +2065,10 @@ def family_checks(torch, dev):
         g_ok = all(bool(((a.cpu() - b).abs() <= 2e-4 + 1e-3 * b.abs()).all())
                    for a, b in pairs)
         prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=g)
-        c_res = serve.serve(cpu_params, cfg, prompts, 6)
-        d_res = serve.serve(params, cfg, prompts.to(dev), 6)
+        front = serve.frontend_inputs(cfg, 3, cpu, frames=16)
+        c_res = serve.serve(cpu_params, cfg, prompts, 6, **front)
+        d_res = serve.serve(params, cfg, prompts.to(dev), 6,
+                            **{k: v.to(dev) for k, v in front.items()})
         l_err = max(float((d_res[k].cpu() - c_res[k]).abs().max())
                     for k in ("prefill_logits", "last_logits"))
         same = torch.equal(d_res["tokens"].cpu(), c_res["tokens"])
@@ -1869,24 +2084,41 @@ def family_checks(torch, dev):
 
 
 def families_phase(torch, F, fa, ref, qkv, gen, dev, smi):
-    """Phase 13. Returns (the head_dim 256 row and errors, the flash launch
-    counts by path)."""
-    hd256 = family_kernels(torch, F, fa, ref, qkv, gen, dev, smi)
-    counts = {}
+    """Phase 13. Returns (the timed kernel rows by shape and the errors, the
+    flash launch counts by path). Every path's counts must be exactly its
+    attention layers times its passes: 0 on xlstm-125m, whisper-small's
+    decoder self attention only (its encoder and cross attention take
+    ``_sdpa``), no backward kernel while serving."""
+    timed = family_kernels(torch, F, fa, ref, qkv, gen, dev, smi)
+    counts, want = {}, {}
     for fam in FAMILIES:
         name = fam["arch"]
         counts[f"{name} train"] = family_train(torch, dev, smi, fam)
+        want[f"{name} train"] = (n_attn(fam, "train") * fam["train"]["steps"],) * 3
         for kind, c in family_pipeline(torch, dev, smi, fam).items():
             counts[f"{name} pipeline {kind}"] = c
+            t = fam["pipe"]
+            want[f"{name} pipeline {kind}"] = (
+                n_attn(fam, "pipe") * t["m"] * t["steps"],) * 3
         counts[f"{name} serve"] = family_serve(torch, dev, smi, fam)
+        want[f"{name} serve"] = (2 * n_attn(fam, "serve"), 0, 0)
     family_checks(torch, dev)
-    for fam in FAMILIES:
-        paths = {k: c for k, c in counts.items() if k.startswith(fam["arch"])}
-        if not all(c["flash_attention_fwd"] > 0 for c in paths.values()) or not all(
-                c["flash_attention_dq"] > 0 and c["flash_attention_dkv"] > 0
-                for k, c in paths.items() if not k.endswith("serve")):
-            fail(f"the flash kernels did not launch on every {fam['arch']} path: {paths}")
-    return hd256, counts
+    keys = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+    wrong = {path: (counts[path], dict(zip(keys, w))) for path, w in want.items()
+             if tuple(counts[path][k] for k in keys) != w}
+    print(f"[check] phase 13 flash launches, each path against its attention layers "
+          f"times its passes: {len(want) - len(wrong)} of {len(want)} paths exact "
+          f"{'ok' if not wrong else 'FAIL'}")
+    if wrong:
+        fail(f"flash launches differ from the attention layers times the passes: {wrong}")
+    return timed, counts
+
+
+def n_attn(fam, path):
+    """The attention layers of the family's config at ``path``'s depth: each
+    flash kernel's launches a pass."""
+    from repro_torch import serve
+    return len(attn_keys(serve.config_for(fam["arch"], layers=fam[path]["layers"]), 1))
 
 
 def sass_counts(libs):
@@ -2215,9 +2447,11 @@ def main():
     # -- 11. the estimation path: stage gains, audits, --plan auto ------------------------
     estimate_counts = estimation_phase(torch, dev, smi)
 
-    # -- 13. the other families (MoE, RG-LRU hybrid) and head_dim 256 ----------------------
-    (hd256_row, hd256_err), family_counts = families_phase(
+    # -- 13. the other families (MoE, RG-LRU, xLSTM, enc-dec, VLM) and head_dim 256 --------
+    (timed_rows, fam_err), family_counts = families_phase(
         torch, F, fa, ref, qkv, gen, dev, smi)
+    hd256_row = timed_rows[HD256[0][7]]
+    family_rows = [row for label, row in timed_rows.items() if label != HD256[0][7]]
 
     def by_path(name):
         return {"serve": serve_counts.get(name, 0), "train": train_counts.get(name, 0),
@@ -2227,8 +2461,12 @@ def main():
                 **{path: c[name] for path, c in estimate_counts.items()},
                 **{path: c[name] for path, c in family_counts.items()}}
 
-    def launches(name):  # this slice's main paths: the two families' phase 13
-        return sum(c[name] for c in family_counts.values())
+    def launches(name):  # this slice's main paths: its three families' phase 13
+        return sum(c[name] for path, c in family_counts.items()
+                   if path.split()[0] in SLICE_FAMILIES)
+
+    def at_family_shapes(name):
+        return [row[name] for row in family_rows]
 
     def at_sliced_shapes(name):
         return [{"shape": row["shape"], **row[name]} for row in sliced_times]
@@ -2243,7 +2481,8 @@ def main():
          "launches_by_path": by_path("flash_attention_fwd"),
          "at_sliced_shapes": at_sliced_shapes("flash_attention_fwd"),
          "at_head_dim_256": hd256_row["flash_attention_fwd"],
-         "max_abs_err": max(max_err, hd256_err["flash_attention_fwd"]),
+         "at_family_shapes": at_family_shapes("flash_attention_fwd"),
+         "max_abs_err": max(max_err, fam_err["flash_attention_fwd"]),
          "ms": kernel_ms, "plain_ms": plain_ms,
          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms},
     ] + [
@@ -2256,7 +2495,8 @@ def main():
          "launches_by_path": by_path(name),
          "at_sliced_shapes": at_sliced_shapes(name),
          "at_head_dim_256": hd256_row[name],
-         "max_abs_err": max(bwd_err[name], hd256_err[name]), "ms": bwd_ms_by[name],
+         "at_family_shapes": at_family_shapes(name),
+         "max_abs_err": max(bwd_err[name], fam_err[name]), "ms": bwd_ms_by[name],
          "plain_ms": plain_by[name], "bound_ms": bounds[name][0],
          "bound_by": bounds[name][1], "library_ms": bwd_library_ms,
          "library_computes": "dq, dk and dv together"}

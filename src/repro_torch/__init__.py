@@ -5,9 +5,11 @@ the twin of ``repro/<sub>/<mod>.py``) and imports nothing of it. Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 missing GPU raises instead of falling back.
 
-Ported so far: the model families with attention and RG-LRU mixers and
-dense or MoE FFNs (``models/moe.py``, ``models/recurrent.py``); their
-serving path (prefill + greedy decode) with a hand-written CUDA
+Ported so far: every model family of the JAX package, with attention,
+RG-LRU and xLSTM mixers and dense or MoE FFNs (``models/moe.py``,
+``models/recurrent.py``, ``models/xlstm.py``), an encoder-decoder's
+encoder and cross attention and a VLM's prefix embeddings; their serving
+path (prefill + greedy decode) with a hand-written CUDA
 flash-attention forward (head_dim up to 256); the
 single-device training step (``launch.train``: loss, recompute arms,
 Adam, data, checkpoints) with hand-written CUDA flash-attention dq and

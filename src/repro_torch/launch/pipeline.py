@@ -17,7 +17,9 @@ The example's flags (``--stages``, ``--micro``, ``--steps``, ``--v``,
 ``--arch`` names a config at full width in its own dtype, or with
 ``--reduced`` its smoke-scale variant in fp32. Without ``--layers`` the depth is the
 example's max(2, v) * stages. Attention is always the port's flash
-kernels. Each arm starts from the same params (seed 0, drawn on the CPU so
+kernels. As in the JAX twin, a VLM (internvl2-1b) pipelines its tokens
+only, and an encoder-decoder (whisper-small) raises: it has no pipelined
+path. Each arm starts from the same params (seed 0, drawn on the CPU so
 that every device gets the same), calls ``PipelineExecutor.step`` and then
 ``optim/adam.update`` (lr 1e-3, as the example) on every step.
 

@@ -1,10 +1,11 @@
 """Attention: GQA/MHA, global or sliding-window, prefill and decode.
 
-Two implementations of full-sequence attention, as in the JAX twin:
+Two implementations of full-sequence causal attention, as in the JAX twin:
   * ``reference`` — plain einsum attention (``_sdpa``),
   * ``flash``     — the flash-attention kernel (``kernels/ops``): the CUDA
     kernel on a card, its plain PyTorch version on the CPU.
-Decode always takes ``_sdpa`` over the KV cache. ``attention_sliced`` runs
+Decode, bidirectional attention (whisper's encoder) and ``cross_attention``
+always take ``_sdpa``. ``attention_sliced`` runs
 one sequence slice over the retained KV of the slices before it
 (sequence-sliced pipeline schedules).
 
@@ -23,7 +24,9 @@ from repro_torch.models.layers import (_winit, apply_norm, cast_matmul,
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
 
-def init_attention(gen, cfg, device):
+def init_attention(gen, cfg, device, cross=False):
+    """A layer's self-attention params; ``cross=True`` gives a decoder
+    layer's cross-attention (whisper), which has no q/k norms."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     p = {
@@ -36,7 +39,7 @@ def init_attention(gen, cfg, device):
         p["bq"] = torch.zeros((nq, hd), device=device)
         p["bk"] = torch.zeros((nkv, hd), device=device)
         p["bv"] = torch.zeros((nkv, hd), device=device)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["qnorm"] = init_norm(cfg, hd, device=device)
         p["knorm"] = init_norm(cfg, hd, device=device)
     return p
@@ -81,8 +84,8 @@ def _project_kv(p, x, cfg, positions):
     return k, v
 
 
-def _sdpa(q, k, v, cfg, q_pos, k_pos, *, window):
-    """Reference causal scaled-dot-product attention with additive masking.
+def _sdpa(q, k, v, cfg, q_pos, k_pos, *, causal, window):
+    """Reference scaled-dot-product attention with additive masking.
 
     q: (b, sq, nq, hd); k/v: (b, sk, nkv, hd); *_pos: (b, s*) int.
     The score einsum runs in the input dtype and is then upcast (fp32 when
@@ -99,7 +102,9 @@ def _sdpa(q, k, v, cfg, q_pos, k_pos, *, window):
     dq = q_pos[:, None, None, :, None]
     dk = k_pos[:, None, None, None, :]
     # ring-buffer slots not yet written carry pos=-1
-    mask = (dk >= 0) & (dq >= dk)
+    mask = dk >= 0
+    if causal:
+        mask = mask & (dq >= dk)
     if window:
         mask = mask & (dq - dk < window)
     scores = torch.where(mask, scores, scalar(NEG_INF, score_dt, q.device))
@@ -114,19 +119,22 @@ def _flash(q, k, v, cfg, *, window, q_offset=0):
                                softcap=cfg.attn_softcap, q_offset=q_offset)
 
 
-def attention(p, x, cfg, positions, *, kind):
-    """Full-sequence (prefill) causal self attention.
+def attention(p, x, cfg, positions, *, kind, causal=True):
+    """Full-sequence (train / prefill) self attention.
 
     kind: 'attn' (global causal) or 'local_attn' (sliding window).
+    causal=False gives bidirectional self attention (whisper's encoder),
+    which takes ``_sdpa`` under either arm, as in the JAX twin.
     Returns (out, (k, v)) so prefill can build the cache.
     """
     q = _project_q(p, x, cfg, positions)
     k, v = _project_kv(p, x, cfg, positions)
     window = cfg.window_size if kind == "local_attn" else 0
-    if cfg.attn_impl == "flash":
+    if cfg.attn_impl == "flash" and causal:
         out = _flash(q, k, v, cfg, window=window)
     else:
-        out = _sdpa(q, k, v, cfg, positions, positions, window=window)
+        out = _sdpa(q, k, v, cfg, positions, positions, causal=causal,
+                    window=window)
     return _merge_heads(out, p["wo"]), (k, v)
 
 
@@ -155,8 +163,22 @@ def attention_sliced(p, x, cfg, positions, kv_prefix, *, kind):
         b, total_k = k.shape[0], k.shape[1]
         k_pos = torch.arange(total_k, dtype=torch.int32,
                              device=x.device)[None].expand(b, total_k)
-        out = _sdpa(q, k, v, cfg, positions, k_pos, window=window)
+        out = _sdpa(q, k, v, cfg, positions, k_pos, causal=True,
+                    window=window)
     return _merge_heads(out, p["wo"]), (k_own, v_own)
+
+
+def cross_attention(p, x, enc_states, cfg):
+    """Decoder -> encoder attention (whisper): k/v projected from the
+    encoder's states with this layer's weights, no RoPE across modalities,
+    no mask."""
+    q = _project_q(p, x, cfg, None)
+    k, v = _project_kv(p, enc_states.to(x.dtype), cfg, None)
+    b, sq = x.shape[:2]
+    q_pos = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = _sdpa(q, k, v, cfg, q_pos, k_pos, causal=False, window=0)
+    return _merge_heads(out, p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +232,6 @@ def attention_decode(p, x, cfg, cache, pos, *, kind):
     cache = update_kv_cache(cache, k_new, v_new, pos)
     window = cfg.window_size if kind == "local_attn" else 0
     out = _sdpa(q, cache["k"], cache["v"], cfg, positions, cache["pos"],
-                window=window)
+                causal=True, window=window)
     out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
     return out, cache

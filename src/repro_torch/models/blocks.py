@@ -13,9 +13,10 @@ Recompute arms, as in the JAX twin: ``remat="attn"`` checkpoints each
 layer's mixer, ``"full"`` each stacked pattern block (not the remainder
 layers), both with ``torch.utils.checkpoint`` (non-reentrant).
 
-Each layer = pre-norm mixer (ATTN, LOCAL or RGLRU) + pre-norm FFN (dense
-or MoE), residual; a layer returns its MoE aux loss beside x (0 for a dense
-FFN). The xLSTM mixers (MLSTM, SLSTM) raise.
+Each layer = pre-norm mixer (ATTN, LOCAL, RGLRU, MLSTM or SLSTM) + an
+optional pre-norm cross attention over the encoder's states (the decoder of
+an encoder-decoder) + pre-norm FFN (dense or MoE), residual; a layer
+returns its MoE aux loss beside x (0 for a dense FFN or none).
 """
 from __future__ import annotations
 
@@ -29,32 +30,29 @@ from repro_torch.configs.base import ATTN, LOCAL, MLSTM, RGLRU, SLSTM
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, cast_matmul,
                                        init_mlp, init_norm)
-
-_NOT_PORTED = {
-    MLSTM: "xLSTM mixers are not ported yet (ROADMAP A10b)",
-    SLSTM: "xLSTM mixers are not ported yet (ROADMAP A10b)",
-}
-
-
-def _check_supported(kind):
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[kind])
-    if kind not in (ATTN, LOCAL, RGLRU):
-        raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
 # Single-layer init / apply
 # ---------------------------------------------------------------------------
-def init_layer(gen, cfg, kind, device):
-    _check_supported(kind)
+def init_layer(gen, cfg, kind, device, *, cross=False):
     p: Dict[str, Any] = {"norm1": init_norm(cfg, device=device)}
-    if kind == RGLRU:
-        p["mixer"] = rec_mod.init_rglru_block(gen, cfg, device)
-    else:
+    if kind in (ATTN, LOCAL):
         p["mixer"] = attn_mod.init_attention(gen, cfg, device)
+    elif kind == RGLRU:
+        p["mixer"] = rec_mod.init_rglru_block(gen, cfg, device)
+    elif kind == MLSTM:
+        p["mixer"] = xlstm_mod.init_mlstm(gen, cfg, device)
+    elif kind == SLSTM:
+        p["mixer"] = xlstm_mod.init_slstm(gen, cfg, device)
+    else:
+        raise ValueError(kind)
+    if cross:
+        p["norm_x"] = init_norm(cfg, device=device)
+        p["cross"] = attn_mod.init_attention(gen, cfg, device, cross=True)
     if cfg.moe is not None:
         p["norm2"] = init_norm(cfg, device=device)
         p["ffn"] = moe_mod.init_moe(gen, cfg, device)
@@ -64,17 +62,33 @@ def init_layer(gen, cfg, kind, device):
     return p
 
 
-def _apply_mixer(p, x, cfg, kind, positions, *, remat):
+def _apply_mixer(p, x, cfg, kind, positions, *, causal, remat):
     if kind == RGLRU:
         return rec_mod.apply_rglru_block(p, x, cfg)
+    if kind == MLSTM:
+        return xlstm_mod.apply_mlstm_block(p, x, cfg)
+    if kind == SLSTM:
+        return xlstm_mod.apply_slstm_block(p, x, cfg)
+    if kind not in (ATTN, LOCAL):
+        raise ValueError(kind)
 
     def f(p_, x_):
-        out, _ = attn_mod.attention(p_, x_, cfg, positions, kind=kind)
+        out, _ = attn_mod.attention(p_, x_, cfg, positions, kind=kind,
+                                    causal=causal)
         return out
 
     if remat == "attn":
         return checkpoint(f, p, x, use_reentrant=False)
     return f(p, x)
+
+
+def _cross(p, x, enc_states, cfg):
+    """The pre-norm cross-attention residual of a decoder layer; x as it is
+    for a layer without one."""
+    if "cross" not in p:
+        return x
+    return x + attn_mod.cross_attention(p["cross"], apply_norm(p["norm_x"], x),
+                                        enc_states, cfg)
 
 
 def _ffn(p, x, cfg):
@@ -92,8 +106,8 @@ def _ffn(p, x, cfg):
 
 
 #: Mixer kinds that can run sequence slices (seq_chunks > 1): causal
-#: attention over a retained-KV prefix. The recurrent kinds carry state
-#: across the sequence that a slice boundary would cut.
+#: attention over a retained-KV prefix. The recurrent kinds (RGLRU, xLSTM)
+#: carry state across the sequence that a slice boundary would cut.
 SLICEABLE_KINDS = (ATTN, LOCAL)
 
 
@@ -126,20 +140,26 @@ def apply_layer_sliced(p, x, cfg, kind, positions, kv_prefix, *,
     return x, aux, kv
 
 
-def apply_layer(p, x, cfg, kind, positions, *, remat="none"):
-    """Forward layer. Returns (x, aux_loss); aux is 0 for a dense FFN."""
-    _check_supported(kind)
+def apply_layer(p, x, cfg, kind, positions, *, enc_states=None, causal=True,
+                remat="none"):
+    """Train/prefill layer. Returns (x, aux_loss); aux is 0 for a dense
+    FFN."""
     x = x + _apply_mixer(p["mixer"], apply_norm(p["norm1"], x), cfg, kind,
-                         positions, remat=remat)
-    return _ffn(p, x, cfg)
+                         positions, causal=causal, remat=remat)
+    return _ffn(p, _cross(p, x, enc_states, cfg), cfg)
 
 
 # ---- per-layer recurrent/KV state ----------------------------------------------
 def init_layer_state(cfg, kind, batch, max_len, dtype, device):
-    _check_supported(kind)
+    if kind in (ATTN, LOCAL):
+        return attn_mod.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
     if kind == RGLRU:
         return rec_mod.init_rglru_state(cfg, batch, dtype, device)
-    return attn_mod.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+    if kind == MLSTM:
+        return xlstm_mod.init_mlstm_state(cfg, batch, device)
+    if kind == SLSTM:
+        return xlstm_mod.init_slstm_state(cfg, batch, device)
+    raise ValueError(kind)
 
 
 def _rglru_prefill(p, xn, cfg, state):
@@ -158,30 +178,48 @@ def _rglru_prefill(p, xn, cfg, state):
     return out, state
 
 
-def apply_layer_prefill(p, x, cfg, kind, positions, state):
+def _xlstm_prefill(p, xn, cfg, kind, state):
+    """An xLSTM block that also writes its end state in place."""
+    scan = xlstm_mod.mlstm_chunkwise if kind == MLSTM else xlstm_mod.slstm_scan
+    h, end = scan(p, xn, cfg)
+    for k, t in end.items():
+        state[k].copy_(t)
+    return attn_mod._merge_heads(h, p["wo"]), state
+
+
+def apply_layer_prefill(p, x, cfg, kind, positions, state, *,
+                        enc_states=None):
     """Like apply_layer but also fills this layer's decode state (in place)."""
-    _check_supported(kind)
     xn = apply_norm(p["norm1"], x)
-    if kind == RGLRU:
-        h, new_state = _rglru_prefill(p["mixer"], xn, cfg, state)
-    else:
+    if kind in (ATTN, LOCAL):
         h, (k, v) = attn_mod.attention(p["mixer"], xn, cfg, positions,
                                        kind=kind)
         new_state = attn_mod.fill_kv_cache(state, k, v)
-    x, _ = _ffn(p, x + h, cfg)
+    elif kind == RGLRU:
+        h, new_state = _rglru_prefill(p["mixer"], xn, cfg, state)
+    elif kind in (MLSTM, SLSTM):
+        h, new_state = _xlstm_prefill(p["mixer"], xn, cfg, kind, state)
+    else:
+        raise ValueError(kind)
+    x, _ = _ffn(p, _cross(p, x + h, enc_states, cfg), cfg)
     return x, new_state
 
 
-def apply_layer_decode(p, x, cfg, kind, pos, state):
+def apply_layer_decode(p, x, cfg, kind, pos, state, *, enc_states=None):
     """One-token decode. x: (b, 1, d). Returns (x, new_state)."""
-    _check_supported(kind)
     xn = apply_norm(p["norm1"], x)
-    if kind == RGLRU:
-        h, state = rec_mod.apply_rglru_block_step(p["mixer"], xn, cfg, state)
-    else:
+    if kind in (ATTN, LOCAL):
         h, state = attn_mod.attention_decode(p["mixer"], xn, cfg, state, pos,
                                              kind=kind)
-    x, _ = _ffn(p, x + h, cfg)
+    elif kind == RGLRU:
+        h, state = rec_mod.apply_rglru_block_step(p["mixer"], xn, cfg, state)
+    elif kind == MLSTM:
+        h, state = xlstm_mod.apply_mlstm_block_step(p["mixer"], xn, cfg, state)
+    elif kind == SLSTM:
+        h, state = xlstm_mod.apply_slstm_block_step(p["mixer"], xn, cfg, state)
+    else:
+        raise ValueError(kind)
+    x, _ = _ffn(p, _cross(p, x + h, enc_states, cfg), cfg)
     return x, state
 
 
@@ -233,13 +271,17 @@ def _stack_init(n: int, make: Callable[[], Dict[str, Any]]):
 # PatternStack
 # ---------------------------------------------------------------------------
 class PatternStack:
-    """How cfg.num_layers decompose into stacked cfg.block_pattern blocks +
-    remainder layers, and the loops that run them."""
+    """How ``num_layers`` (default cfg.num_layers) decompose into stacked
+    ``pattern`` (default cfg.block_pattern) blocks + remainder layers, and
+    the loops that run them. ``cross=True`` gives each layer a cross
+    attention (an encoder-decoder's decoder)."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, *, cross=False, num_layers=None, pattern=None):
         self.cfg = cfg
-        self.pattern = tuple(cfg.block_pattern)
-        n = cfg.num_layers
+        self.cross = cross
+        self.pattern = tuple(pattern or cfg.block_pattern)
+        n = num_layers if num_layers is not None else cfg.num_layers
+        self.num_layers = n
         self.n_full = n // len(self.pattern)
         self.rem = self.pattern[: n % len(self.pattern)]
 
@@ -249,10 +291,11 @@ class PatternStack:
         for j, kind in enumerate(self.pattern):
             if self.n_full:
                 p[f"pos{j}"] = _stack_init(
-                    self.n_full,
-                    lambda: init_layer(gen, self.cfg, kind, device))
+                    self.n_full, lambda: init_layer(gen, self.cfg, kind, device,
+                                                    cross=self.cross))
         for i, kind in enumerate(self.rem):
-            p[f"rem{i}"] = init_layer(gen, self.cfg, kind, device)
+            p[f"rem{i}"] = init_layer(gen, self.cfg, kind, device,
+                                      cross=self.cross)
         return p
 
     def init_state(self, batch, max_len, dtype, device):
@@ -284,40 +327,46 @@ class PatternStack:
                    None if state is None else state[f"rem{i}"])
 
     # -- train / eval forward ----------------------------------------------------
-    def apply(self, params, x, positions, *, remat="none"):
+    def apply(self, params, x, positions, *, enc_states=None, causal=True,
+              remat="none"):
         cfg, pattern = self.cfg, self.pattern
 
-        def block(x, block_params):
+        def block(x, block_params, enc_states):
             aux = 0.0
             for j, kind in enumerate(pattern):
                 x, a = apply_layer(block_params[f"pos{j}"], x, cfg, kind,
-                                   positions, remat=remat)
+                                   positions, enc_states=enc_states,
+                                   causal=causal, remat=remat)
                 aux = aux + a
             return x, aux
 
         aux = 0.0
         for block_params in self._blocks(params):
             if remat == "full":
-                x, a = checkpoint(block, x, block_params, use_reentrant=False)
+                x, a = checkpoint(block, x, block_params, enc_states,
+                                  use_reentrant=False)
             else:
-                x, a = block(x, block_params)
+                x, a = block(x, block_params, enc_states)
             aux = aux + a
         for i, kind in enumerate(self.rem):
             x, a = apply_layer(params[f"rem{i}"], x, cfg, kind, positions,
+                               enc_states=enc_states, causal=causal,
                                remat=remat)
             aux = aux + a
         return x, aux
 
     # -- prefill (forward + fill decode state) ----------------------------------
-    def prefill(self, params, x, positions, state):
+    def prefill(self, params, x, positions, state, *, enc_states=None):
         """Returns (x, state); the state's tensors are filled in place."""
         for kind, p, st in self._layers(params, state):
-            x, _ = apply_layer_prefill(p, x, self.cfg, kind, positions, st)
+            x, _ = apply_layer_prefill(p, x, self.cfg, kind, positions, st,
+                                       enc_states=enc_states)
         return x, state
 
     # -- one-token decode --------------------------------------------------------
-    def decode(self, params, x, pos, state):
+    def decode(self, params, x, pos, state, *, enc_states=None):
         """Returns (x, state); the state's tensors are updated in place."""
         for kind, p, st in self._layers(params, state):
-            x, _ = apply_layer_decode(p, x, self.cfg, kind, pos, st)
+            x, _ = apply_layer_decode(p, x, self.cfg, kind, pos, st,
+                                      enc_states=enc_states)
         return x, state

@@ -1,25 +1,29 @@
 """Top-level model: embeddings -> PatternStack -> norm -> logits.
 
-Covers the decoder-only LMs: attention, RG-LRU and hybrid stacks (ATTN,
-LOCAL, RGLRU mixers) with dense or MoE FFNs. The xLSTM mixers, the
-encoder-decoder (whisper) and vision-prefix (VLM) inputs raise.
+Covers every family of the JAX twin:
+  * decoder-only LMs (dense / MoE / RG-LRU hybrid / xLSTM),
+  * encoder-decoder (whisper: stub audio-frame embeddings -> encoder,
+    tokens -> decoder with cross attention),
+  * VLM (stub vision patch embeddings prepended to the token stream).
 
 API:
   init_params(gen, cfg, device="cuda")
   forward(params, batch, cfg, remat=...) -> (logits, aux_loss)
   loss_fn(params, batch, cfg, remat=...) -> (loss, metrics)
   init_decode_state(cfg, batch, max_len, device="cuda")
-  prefill(params, batch, cfg, state) -> (logits_last, state)
-  decode_step(params, token, pos, state, cfg) -> (logits, state)
+  prefill(params, batch, cfg, state) -> (logits_last, state, enc_states)
+  decode_step(params, token, pos, state, cfg, enc_states=None)
+      -> (logits, state)
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models.blocks import PatternStack
 from repro_torch.models.layers import (apply_norm, cdtype, embed, init_embed,
                                        init_norm, unembed)
@@ -27,11 +31,13 @@ from repro_torch.models.layers import (apply_norm, cdtype, embed, init_embed,
 ENCODER_FRAMES = 1500  # whisper-style fixed encoder length (core/flops.py)
 
 
-def _stack(cfg: ModelConfig) -> PatternStack:
+def _stacks(cfg: ModelConfig):
+    """(decoder stack, encoder stack or None)."""
+    dec = PatternStack(cfg, cross=cfg.is_encdec)
+    enc = None
     if cfg.is_encdec:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP A10c)")
-    return PatternStack(cfg)
+        enc = PatternStack(cfg, num_layers=cfg.encoder_layers, pattern=(ATTN,))
+    return dec, enc
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
@@ -39,33 +45,62 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, device="cuda"):
     live on the same device type). ``cuda`` without a card raises; pass
     ``device="cpu"`` for the CPU."""
     device = resolve_device(device)
-    dec = _stack(cfg)
+    dec, enc = _stacks(cfg)
     p: Dict[str, Any] = {
         "embed": init_embed(gen, cfg, device),
         "blocks": dec.init(gen, device),
         "final_norm": init_norm(cfg, device=device),
     }
+    if enc is not None:
+        p["encoder"] = {"blocks": enc.init(gen, device),
+                        "norm": init_norm(cfg, device=device)}
     return p
 
 
+def _positions(b, s, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def encode(params, enc_embeds, cfg):
+    """Stub-frontend encoder: enc_embeds (b, frames, d) are precomputed
+    frame embeddings. Bidirectional attention (``_sdpa``) with RoPE. A
+    profiler sees its forward as the range "encoder"."""
+    _, enc = _stacks(cfg)
+    with record_function("encoder"):
+        x = enc_embeds.to(cdtype(cfg))
+        x, _ = enc.apply(params["encoder"]["blocks"], x,
+                         _positions(*x.shape[:2], x.device), causal=False)
+        return apply_norm(params["encoder"]["norm"], x)
+
+
 def _embed_inputs(params, batch, cfg):
-    """Token embedding. Returns (x, positions)."""
-    if "prefix_embeds" in batch or "enc_embeds" in batch:
-        raise NotImplementedError(
-            "vision-prefix and encoder inputs are not ported yet (ROADMAP "
-            "A10c)")
+    """Token (+ a VLM's prefix) embedding. Returns (x, positions,
+    n_prefix)."""
     x = embed(params["embed"], batch["tokens"], cfg)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    return x, positions[None].expand(b, s)
+    n_prefix = 0
+    if cfg.frontend == "vision" and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(x.dtype)
+        n_prefix = pre.shape[1]
+        x = torch.cat([pre, x], dim=1)
+    return x, _positions(*x.shape[:2], x.device), n_prefix
+
+
+def _enc_states(params, batch, cfg):
+    return encode(params, batch["enc_embeds"], cfg) if cfg.is_encdec else None
 
 
 def forward(params, batch, cfg: ModelConfig, *, remat="none"):
-    """batch: {tokens (b, s)}. Returns (logits over token positions, the
-    MoE aux loss summed over the layers; 0 without MoE)."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, aux = _stack(cfg).apply(params["blocks"], x, positions, remat=remat)
+    """batch: {tokens (b, s) [, prefix_embeds (b, n, d), enc_embeds (b,
+    frames, d)]}. Returns (logits over the token positions, the MoE aux
+    loss summed over the layers; 0 without MoE)."""
+    dec, _ = _stacks(cfg)
+    enc_states = _enc_states(params, batch, cfg)
+    x, positions, n_prefix = _embed_inputs(params, batch, cfg)
+    x, aux = dec.apply(params["blocks"], x, positions, enc_states=enc_states,
+                       remat=remat)
     x = apply_norm(params["final_norm"], x)
+    if n_prefix:
+        x = x[:, n_prefix:]
     return unembed(params["embed"], x, cfg), aux
 
 
@@ -102,22 +137,31 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device="cuda"):
     """Empty decode state on ``device``: a KV cache for each attention layer
     (a ring of the window for LOCAL), the recurrence h (fp32) and conv tail
-    for each RG-LRU layer. ``cuda`` without a card raises."""
-    return _stack(cfg).init_state(batch, max_len, cdtype(cfg),
-                                  resolve_device(device))
+    for each RG-LRU layer, the fp32 memories and stabilisers of each xLSTM
+    layer. A VLM's max_len counts its prefix. ``cuda`` without a card
+    raises."""
+    dec, _ = _stacks(cfg)
+    return dec.init_state(batch, max_len, cdtype(cfg), resolve_device(device))
 
 
 def prefill(params, batch, cfg: ModelConfig, state):
-    """Run the full prompt, fill decode state, return last-position logits."""
-    x, positions = _embed_inputs(params, batch, cfg)
-    x, state = _stack(cfg).prefill(params["blocks"], x, positions, state)
+    """Run the full prompt (after a VLM's prefix), fill the decode state and
+    return (last-position logits, state, the encoder's states or None)."""
+    dec, _ = _stacks(cfg)
+    enc_states = _enc_states(params, batch, cfg)
+    x, positions, _ = _embed_inputs(params, batch, cfg)
+    x, state = dec.prefill(params["blocks"], x, positions, state,
+                           enc_states=enc_states)
     x = apply_norm(params["final_norm"], x[:, -1:])
-    return unembed(params["embed"], x, cfg)[:, 0], state
+    return unembed(params["embed"], x, cfg)[:, 0], state, enc_states
 
 
-def decode_step(params, token, pos, state, cfg: ModelConfig):
-    """token: (b,) int; pos: int (position being written)."""
+def decode_step(params, token, pos, state, cfg: ModelConfig, enc_states=None):
+    """token: (b,) int; pos: int (position being written, a VLM's prefix
+    included); enc_states: ``prefill``'s, for an encoder-decoder."""
     x = embed(params["embed"], token[:, None], cfg)
-    x, state = _stack(cfg).decode(params["blocks"], x, pos, state)
+    dec, _ = _stacks(cfg)
+    x, state = dec.decode(params["blocks"], x, pos, state,
+                          enc_states=enc_states)
     x = apply_norm(params["final_norm"], x)
     return unembed(params["embed"], x, cfg)[:, 0], state

@@ -12,6 +12,11 @@ merge (Megatron ties them with an all-reduce the same way).
 A stage's layers are a dict keyed by the local layer index (0, 1, ...), so
 the port's tree helpers flatten and rebuild stage params and grads.
 
+As in the JAX twin, the first stage embeds the batch's tokens only: a VLM
+pipelines text-only (its ``prefix_embeds`` are not read), and an
+encoder-decoder has no pipelined path (the twin's stages carry no encoder
+params and pass no encoder states), so its stage functions raise.
+
 All functions are written over *virtual* stages: for interleaved schedules
 with v chunks per device, pass ``p * v`` as the stage count and index with
 ``virtual_stage = chunk * p + device``.
@@ -109,6 +114,14 @@ class StageSplitter:
 # ---------------------------------------------------------------------------
 # Stage forward functions
 # ---------------------------------------------------------------------------
+def _check_decoder_only(cfg: ModelConfig):
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-decoder models have no pipelined path; the "
+            "JAX twin's stages carry no encoder params or encoder states "
+            "either")
+
+
 def make_stage_fn(cfg: ModelConfig, p: int, stage: int, remat: str = "none"):
     """Returns f(stage_params, carry, batch) -> activation or loss.
 
@@ -116,6 +129,7 @@ def make_stage_fn(cfg: ModelConfig, p: int, stage: int, remat: str = "none"):
     batch's tokens, the last stage returns the scalar mean loss of the
     microbatch (fp32 cross-entropy, labels < 0 masked) plus the aux.
     """
+    _check_decoder_only(cfg)
     assign = layer_assignment(cfg, p)
     kinds = cfg.layer_kinds()
     layers = assign[stage]
@@ -167,6 +181,7 @@ def make_sliced_stage_fn(cfg: ModelConfig, p: int, stage: int,
     it by the microbatch's count of valid tokens, so the slices' losses sum
     to the unsliced stage loss.
     """
+    _check_decoder_only(cfg)
     assign = layer_assignment(cfg, p)
     kinds = cfg.layer_kinds()
     layers = assign[stage]

@@ -1,14 +1,18 @@
-"""Serve a decoder with batched requests: prefill + greedy decode through
-the cached serve path (KV caches, and the RG-LRU layers' recurrence state).
-The twin of the JAX package's ``examples/serve.py``.
+"""Serve a model with batched requests: prefill + greedy decode through
+the cached serve path (KV caches, the RG-LRU and xLSTM layers' recurrent
+state, an encoder-decoder's encoder states, a VLM's prefix). The twin of
+the JAX package's ``examples/serve.py``.
 
     python -m repro_torch.serve --arch llama-65b --layers 10 --batch 4 \\
         --prompt-len 2048 --gen 16                # full width, on the card
-    python -m repro_torch.serve --arch llama-65b --reduced --device cpu
+    python -m repro_torch.serve --arch whisper-small --reduced --device cpu
 
 Weights are random (fp32, cast to the config's compute dtype on read) and
-drawn, with the prompts, from seed 0. Without ``--device cpu`` it runs on
-the card and raises when there is none.
+drawn, with the prompts, from seed 0; a VLM's prefix embeddings
+(``num_prefix_embeds`` of them) from seed 2 and an encoder-decoder's frame
+embeddings (``ENCODER_FRAMES``, 16 with ``--reduced`` as in the twin) from
+seed 3. Without ``--device cpu`` it runs on the card and raises when there
+is none.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
-from repro_torch.train.steps import make_prefill_step, make_serve_step
+from repro_torch.train.steps import make_serve_step
 
 
 def config_for(arch, *, layers=None, attn_impl="flash", reduced=False):
@@ -42,24 +46,33 @@ def _sync(device):
 
 
 @torch.inference_mode()
-def serve(params, cfg, prompts, gen: int):
-    """Prefill ``prompts`` (b, sp) and greedily decode until each sequence
-    has ``gen`` new tokens. Returns the tokens (b, gen), the logits of the
-    prefill and of the last step, and host-clock times that end in a
-    device synchronise."""
+def serve(params, cfg, prompts, gen: int, *, prefix_embeds=None,
+          enc_embeds=None):
+    """Prefill ``prompts`` (b, sp), after a VLM's ``prefix_embeds`` (b, n,
+    d) and over an encoder-decoder's ``enc_embeds`` (b, frames, d), and
+    greedily decode until each sequence has ``gen`` new tokens. Returns the
+    tokens (b, gen), the logits of the prefill and of the last step, and
+    host-clock times that end in a device synchronise."""
     b, sp = prompts.shape
     device = prompts.device
-    state = M.init_decode_state(cfg, b, sp + gen, device)
-    prefill_step, serve_step = make_prefill_step(cfg), make_serve_step(cfg)
+    batch = {"tokens": prompts}
+    npre = 0
+    if prefix_embeds is not None and cfg.frontend == "vision":
+        batch["prefix_embeds"] = prefix_embeds
+        npre = prefix_embeds.shape[1]
+    if cfg.is_encdec:
+        batch["enc_embeds"] = enc_embeds
+    state = M.init_decode_state(cfg, b, sp + gen + npre, device)
+    serve_step = make_serve_step(cfg)
     _sync(device)
     t0 = time.perf_counter()
-    prefill_logits, state = prefill_step(params, {"tokens": prompts}, state)
+    prefill_logits, state, enc = M.prefill(params, batch, cfg, state)
     tok = torch.argmax(prefill_logits, dim=-1).to(torch.int32)
     _sync(device)
     t1 = time.perf_counter()
     out, logits = [tok], prefill_logits
     for i in range(gen - 1):
-        tok, logits, state = serve_step(params, state, tok, sp + i)
+        tok, logits, state = serve_step(params, state, tok, sp + npre + i, enc)
         out.append(tok)
     _sync(device)
     t2 = time.perf_counter()
@@ -71,6 +84,22 @@ def serve(params, cfg, prompts, gen: int):
         "decode_s": t2 - t1,
         "decode_tok_s": (gen - 1) * b / (t2 - t1) if gen > 1 else 0.0,
     }
+
+
+def frontend_inputs(cfg, batch: int, device, *, frames: int):
+    """A VLM's prefix embeddings (seed 2) and an encoder-decoder's
+    ``frames`` frame embeddings (seed 3), standard normal, as keyword
+    arguments of ``serve``."""
+    kw = {}
+    if cfg.frontend == "vision" and cfg.num_prefix_embeds:
+        kw["prefix_embeds"] = torch.randn(
+            (batch, cfg.num_prefix_embeds, cfg.d_model),
+            generator=torch.Generator(device).manual_seed(2), device=device)
+    if cfg.is_encdec:
+        kw["enc_embeds"] = torch.randn(
+            (batch, frames, cfg.d_model),
+            generator=torch.Generator(device).manual_seed(3), device=device)
+    return kw
 
 
 def parse_args(argv=None):
@@ -98,7 +127,9 @@ def main(argv=None):
     params = M.init_params(gen, cfg, device)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device)
-    res = serve(params, cfg, prompts, args.gen)
+    res = serve(params, cfg, prompts, args.gen, **frontend_inputs(
+        cfg, args.batch, device,
+        frames=16 if args.reduced else M.ENCODER_FRAMES))
     b, sp = prompts.shape
     print(f"[prefill] {b} x {sp} tokens in {res['prefill_s']:.4f} s")
     print(f"[decode] {args.gen - 1} steps x {b} seqs in {res['decode_s']:.4f} s "

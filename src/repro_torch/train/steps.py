@@ -57,20 +57,23 @@ def make_loss_grad(cfg: ModelConfig, tcfg: TrainConfig):
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch, state) -> (logits_last, state)."""
+    """(params, batch, state) -> (logits_last, state); an encoder-decoder's
+    caller who needs the encoder's states calls ``model.prefill``."""
 
     def step(params, batch, state):
-        return M.prefill(params, batch, cfg, state)
+        logits, state, _ = M.prefill(params, batch, cfg, state)
+        return logits, state
 
     return step
 
 
 def make_serve_step(cfg: ModelConfig):
-    """One greedy decode step: (params, state, token, pos)
+    """One greedy decode step: (params, state, token, pos[, enc_states])
     -> (next_token, logits, state)."""
 
-    def step(params, state, token, pos):
-        logits, state = M.decode_step(params, token, pos, state, cfg)
+    def step(params, state, token, pos, enc_states=None):
+        logits, state = M.decode_step(params, token, pos, state, cfg,
+                                      enc_states=enc_states)
         return torch.argmax(logits, dim=-1).to(torch.int32), logits, state
 
     return step

@@ -132,5 +132,5 @@ def test_sdpa_empty_slots_and_gqa():
     want = JA._sdpa(*map(jnp.asarray, (q, k, v)), jc, jnp.asarray(qpos),
                     jnp.asarray(kpos), causal=True, window=3)
     got = TA._sdpa(*map(torch.from_numpy, (q, k, v)), tc, torch.from_numpy(qpos),
-                   torch.from_numpy(kpos), window=3)
+                   torch.from_numpy(kpos), causal=True, window=3)
     _close(got, want)

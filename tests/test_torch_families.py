@@ -172,8 +172,8 @@ def test_forward_prefill_decode_match(arch, impl):
     jst = JM.init_decode_state(jc, b, s)
     tst = TM.init_decode_state(tc, b, s, device="cpu")
     jl, jst, _ = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :sp])}, jc, jst)
-    tl, tst = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :sp]).long()},
-                         tc, tst)
+    tl, tst, _ = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :sp]).long()},
+                            tc, tst)
     _close(tl, jl)
     _trees_close(tst, jst, LOGIT_TOL, 0)
     for i in range(sp, s):
@@ -196,8 +196,8 @@ def test_prefill_shorter_than_conv_and_window(arch):
     jst = JM.init_decode_state(jc, 3, 5)
     tst = TM.init_decode_state(tc, 3, 5, device="cpu")
     jl, jst, _ = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :2])}, jc, jst)
-    tl, tst = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :2]).long()},
-                         tc, tst)
+    tl, tst, _ = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :2]).long()},
+                            tc, tst)
     _close(tl, jl)
     _trees_close(tst, jst, LOGIT_TOL, 0)
     for i in range(2, 5):

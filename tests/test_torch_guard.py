@@ -21,6 +21,7 @@ from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
+from repro_torch.models import xlstm as TX
 from repro_torch.train import steps as TS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -315,7 +316,8 @@ def test_bridge_to_torch_takes_device_without_default():
 @pytest.mark.parametrize("fn", [
     TL.init_norm, TL.init_mlp, TL.init_embed, TA.init_attention,
     TA.init_kv_cache, TB.init_layer, TB.init_layer_state,
-    TB.PatternStack.init, TB.PatternStack.init_state,
+    TB.PatternStack.init, TB.PatternStack.init_state, TX.init_mlstm,
+    TX.init_slstm, TX.init_mlstm_state, TX.init_slstm_state,
 ], ids=lambda f: f.__qualname__)
 def test_internal_inits_take_device_without_default(fn):
     assert inspect.signature(fn).parameters["device"].default \

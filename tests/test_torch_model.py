@@ -64,8 +64,8 @@ def test_forward_prefill_decode_match(arch, kw, impl):
     jst = JM.init_decode_state(jc, b, s)
     tst = TM.init_decode_state(tc, b, s, device="cpu")
     jl, jst, _ = JM.prefill(jp, {"tokens": jnp.asarray(toks[:, :sp])}, jc, jst)
-    tl, tst = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :sp]).long()},
-                         tc, tst)
+    tl, tst, _ = TM.prefill(tp, {"tokens": torch.from_numpy(toks[:, :sp]).long()},
+                            tc, tst)
     _close(tl, jl)
     for i in range(sp, s):
         jl, jst = JM.decode_step(jp, jnp.asarray(toks[:, i]), jnp.int32(i), jst, jc)
@@ -95,21 +95,3 @@ def test_serve_tokens_equal(arch, kw, impl):
     np.testing.assert_array_equal(res["tokens"].numpy(),
                                   np.asarray(jnp.stack(want, 1)))
     assert res["tokens"].dtype == torch.int32
-
-
-@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-small", "internvl2-1b"])
-def test_unported_families_raise(arch):
-    """The families still to be ported raise, naming ROADMAP: xLSTM mixers
-    and the encoder-decoder at init_params, a vision-prefix batch (the VLM)
-    where its inputs are embedded."""
-    cfg = dataclasses.replace(tget_config(arch).reduced(), dtype="float32")
-    gen = torch.Generator().manual_seed(0)
-    if cfg.frontend != "vision":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.init_params(gen, cfg, device="cpu")
-        return
-    params = TM.init_params(gen, cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long),
-             "prefix_embeds": torch.zeros((1, 2, cfg.d_model))}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.forward(params, batch, cfg)
