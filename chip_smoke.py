@@ -110,7 +110,24 @@ Phases, each fatal on failure:
      peaks, every path's flash launches equal to its attention layers
      times its passes (0 on xlstm-125m), and each family at a small fp32
      size on the card against the CPU (loss, grads, serve logits and
-     tokens).
+     tokens);
+ 14. the SPMD pipeline (``pipeline/spmd.py``): ``make_spmd_train_loss`` on
+     llama-65b at full width, 4 layers, p 4 (one layer a rank), data 1, B 4
+     x 2048 in m 4 microbatches, flash, bf16 compute, fp32 params, as four
+     gloo ranks spawned on the one card (``launch.ranks``; their hops staged
+     through host memory, so the times say nothing of NVLink), the remat
+     and the bpipe_stash arm, 3 loss-and-grad steps each: step ms (the
+     slowest rank's, median), tokens/s, each rank's peak memory, flash
+     launches and collective ops, bytes and host seconds a step; checks the
+     two arms bit for bit equal, the loss and per-leaf grad norms against a
+     single-device reference on the same params, the hops per step
+     (``spmd_hops``: 2(m + p - 1) - 1, and 2(m + p - 1) more under
+     bpipe_stash, ``spmd_hop_bytes`` each) and the flash launches per rank
+     (``spmd_flash_launches``), and the same program small in fp32 on the
+     card against the CPU; meanwhile ``launch.pipeline_dryrun`` runs both
+     archs on the single production mesh (a fake process group of 256
+     ranks, host only) and its bpipe files must hold 2(m + p - 1) more
+     permutes a step.
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -120,8 +137,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -263,7 +282,6 @@ FAMILY_TIMED = ("whisper-small decoder", "internvl2-1b")
 # step at 64 tokens a row, its pipelined step at 16 and its prefill at 128
 # (the launches a time step do not change with the length; the profiler
 # takes tens of microseconds on the host for each event it returns).
-SLICE_FAMILIES = ("xlstm-125m", "whisper-small", "internvl2-1b")
 FAMILIES = [
     dict(arch="granite-moe-1b-a400m",
          train=dict(layers=24, batch=4, seq=2048, steps=5),
@@ -287,6 +305,22 @@ FAMILIES = [
          pipe=dict(layers=24, p=4, micro=1, m=4, seq=2048, steps=3),
          serve=dict(layers=24, batch=4, prompt=1792, gen=16)),
 ]
+# phase 14, the SPMD pipeline (``pipeline/spmd.py``): four gloo ranks on the
+# one card, one llama-65b layer a rank (PIPE's cut), data 1, B 4 x 2048 in m 4
+# microbatches of 1 x 2048, the remat and the bpipe_stash arm, 3
+# loss-and-grad steps each. Reckoned peak a rank: 3.2 GiB of its layer, 2
+# GiB of the replicated table and head, as much again of grads, a stage's
+# activations and, on the last rank, 4 microbatches' fp32 logits (about 2
+# GiB): 12-16 GiB, 50-65 GiB for the four beside the parent's residue.
+SPMD = dict(arch="llama-65b", layers=4, p=4, data=1, batch=4, seq=2048, m=4,
+            steps=3, reduced=False)
+# the same four-rank program small in fp32, on the card and on the CPU
+SPMD_SMALL = dict(arch="llama-65b", layers=4, p=4, data=1, batch=8, seq=32, m=4,
+                  steps=1, reduced=True)
+SPMD_ARMS = ("remat", "bpipe")
+SPMD_TIMEOUT_S = 600
+SPMD_TRANSPORT = ("gloo, 4 ranks share one card, hops staged through host "
+                  "memory: these times say nothing of NVLink")
 
 
 def fail(msg):
@@ -2114,6 +2148,309 @@ def families_phase(torch, F, fa, ref, qkv, gen, dev, smi):
     return timed, counts
 
 
+def spmd_hops(m, p, bpipe):
+    """The collective-permutes a rank runs in one loss-and-grad step of the
+    SPMD pipeline, T = m + p - 1 ticks: T shifts forward, T - 1 backward (the
+    last tick's shift has no reader, so no backward), and under bpipe_stash
+    one EVICT and one LOAD a tick: 2T - 1, or 4T - 1."""
+    t = m + p - 1
+    return 2 * t - 1 + (2 * t if bpipe else 0)
+
+
+def spmd_hop_bytes(mb, seq, d, itemsize):
+    """One hop's bytes: a microbatch's activations, mb x s x d."""
+    return mb * seq * d * itemsize
+
+
+def spmd_flash_launches(m, p, layers, steps):
+    """Each flash kernel's launches on one rank over ``steps`` steps: every
+    one of the m + p - 1 ticks runs the stage's layers forward, again in the
+    backward's recompute (both arms recompute), and once backward."""
+    n = (m + p - 1) * (layers // p) * steps
+    return {"flash_attention_fwd": 2 * n, "flash_attention_dq": n,
+            "flash_attention_dkv": n}
+
+
+def spmd_rank(rank, world, t, device, init_device):
+    """Phase 14 on one rank (spawned by ``launch.ranks.run_ranks``): this
+    rank's stage of ``t``'s model drawn on ``init_device`` from seed 0,
+    both arms over the same params and batches, each step timed on this
+    rank (a barrier before, a synchronise after), the flash counts set to 0
+    just before each arm and read just after, the collective counter read
+    each step. The two arms' last losses and grads are compared bit for bit
+    here (the first arm's grads wait on the host). Returns numbers, and the
+    last step's grads as numpy when ``t`` is small."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.pipeline import collectives as C
+    from repro_torch.pipeline import spmd
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
+                           reduced=t["reduced"])
+    mesh = make_host_mesh(t["data"], t["p"])
+    stage, d = mesh.get_local_rank("model"), mesh.get_local_rank("data")
+    params = spmd.init_pipeline_params(torch.Generator(init_device).manual_seed(0),
+                                       cfg, t["p"], stage, init_device)
+    params = T.tree_map(lambda x: x.to(dev), params)
+    lb = t["batch"] // t["data"]
+    batches = [{k: torch.from_numpy(v[d * lb:(d + 1) * lb]).to(dev)
+                for k, v in make_batch(cfg, DataConfig(batch=t["batch"],
+                                                       seq_len=t["seq"]), i).items()}
+               for i in range(t["steps"])]
+    out = {"stage": stage, "data": d, "arms": {},
+           "transport": C.transport(dist.group.WORLD)}
+    first = None
+    for arm in SPMD_ARMS:
+        step = spmd.make_spmd_train_loss(cfg, mesh, t["p"], t["m"],
+                                         bpipe_stash=arm == "bpipe")
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        counts_zero(fa)
+        times, losses, counters = [], [], []
+        for batch in batches:
+            loss = grads = None  # the last step's grads go before this step's come
+            dist.barrier()
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            C.reset()
+            loss, grads = step(params, batch)
+            if cuda:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counters.append(C.read())
+            losses.append(float(loss))
+        counts = counts_read(fa)
+        named = [("/".join(map(str, path)), g) for path, g in T.leaves_with_paths(grads)]
+        res = {"times": times, "losses": losses, "counters": counters,
+               "counts": counts,
+               "peak": torch.cuda.max_memory_allocated() if cuda else None,
+               "norms": {k: float(g.float().norm()) for k, g in named}}
+        if t["reduced"]:
+            res["grads"] = {k: g.cpu().numpy() for k, g in named}
+        if first is None:
+            first = (losses[-1], [g.cpu() for _, g in named])
+        else:
+            out["same"] = first[0] == losses[-1] and all(
+                torch.equal(a, g.cpu()) for a, (_, g) in zip(first[1], named))
+        out["arms"][arm] = res
+        del loss, grads, named, step
+    return out
+
+
+def spmd_reference(torch, dev, cfg, t, batch):
+    """The twin of the JAX package's ``tests/test_spmd.py`` ``ref_loss`` on
+    one device, on the params every rank drew (seed 0): each stage's layers
+    in order over one microbatch at a time, the loss the mean of the
+    microbatches' means (the pipeline's), grads accumulated. Returns the
+    loss and each leaf's grad norm, keyed as a rank keys them, a stage's
+    leaves under "stage i"."""
+    from repro_torch import tree as T
+    from repro_torch.models.blocks import apply_layer
+    from repro_torch.models.layers import apply_norm, embed, unembed
+    from repro_torch.pipeline import spmd
+
+    p, m = t["p"], t["m"]
+    per, kinds = t["layers"] // p, cfg.layer_kinds()
+    stages = []
+    for i in range(p):
+        drawn = spmd.init_pipeline_params(torch.Generator(dev).manual_seed(0), cfg,
+                                          p, i, dev)
+        stages.append(drawn.pop("stages"))
+        shared = drawn
+    params = {**shared, "stages": dict(enumerate(stages))}
+    for leaf in T.leaves(params):
+        leaf.requires_grad_(True)
+    tokens, labels = batch["tokens"], batch["labels"]
+    mb = tokens.shape[0] // m
+    total = 0.0
+    for micro in range(m):
+        rows = slice(micro * mb, (micro + 1) * mb)
+        x = embed(params["embed"], tokens[rows], cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        for i in range(p):
+            for j in range(per):
+                x, _ = apply_layer(params["stages"][i][j], x, cfg, kinds[j], positions)
+        logits = unembed(params["embed"], apply_norm(params["final_norm"], x), cfg)
+        lbl = labels[rows]
+        mask = (lbl >= 0).float()
+        logp = torch.log_softmax(logits.float(), -1)
+        nll = -torch.gather(logp, -1, lbl.clamp_min(0).long()[..., None])[..., 0]
+        loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        (loss / m).backward()
+        total += float(loss.detach()) / m
+        del x, logits, logp, nll, loss
+    norms = {}
+    for path, leaf in T.leaves_with_paths(params):
+        key = ("stage {} {}".format(path[1], "/".join(map(str, ("stages",) + path[2:])))
+               if path[0] == "stages" else "/".join(path))
+        norms[key] = float(leaf.grad.float().norm())
+    return total, norms
+
+
+def spmd_phase(torch, dev, smi):
+    """Phase 14: the SPMD pipeline on four gloo ranks of the one card. Returns
+    each arm's flash launch counts summed over the ranks."""
+    import statistics
+
+    from repro_torch import serve
+    from repro_torch.launch.ranks import run_ranks
+
+    t = SPMD
+    world = t["data"] * t["p"]
+    # the dry run is host-only: its process runs beside the ranks
+    dry_dir = tempfile.mkdtemp(prefix="dryrun_torch_")
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.pipeline_dryrun", "--arch",
+         "gpt3-96b", "llama-65b", "--mesh", "single", "--out", dry_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[spmd] the parent before spawning: memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        # four processes share the card's memory: each rank's allocator maps
+        # what it needs instead of holding fragmented blocks
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = run_ranks(spmd_rank, world, args=(t, "cuda", "cuda"),
+                              timeout_s=SPMD_TIMEOUT_S)
+        finally:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        wall = time.perf_counter() - t0
+        cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash")
+        mb = t["batch"] // t["data"] // t["m"]
+        hop = spmd_hop_bytes(mb, t["seq"], cfg.d_model, 2)
+        want_counts = spmd_flash_launches(t["m"], t["p"], t["layers"], t["steps"])
+        tokens = t["batch"] * t["seq"]
+        counts_by_arm, ok = {}, True
+        for arm in SPMD_ARMS:
+            rs = [r["arms"][arm] for r in ranks]
+            slowest = [max(r["times"][i] for r in rs) for i in range(t["steps"])]
+            step_s = statistics.median(slowest)
+            counters = [c for r in rs for c in r["counters"]]
+            cp = {(c["ops"]["collective-permute"], c["bytes"]["collective-permute"])
+                  for c in counters}
+            ar = {(c["ops"]["all-reduce"], c["bytes"]["all-reduce"]) for c in counters}
+            # host seconds a rank spent in each kind of collective, its last step
+            in_coll = [{k: round(r["counters"][-1]["seconds"][k] * 1e3, 2)
+                        for k in ("collective-permute", "all-reduce")} for r in rs]
+            n_hops = spmd_hops(t["m"], t["p"], arm == "bpipe")
+            ok_hops = cp == {(n_hops, n_hops * hop)}
+            ok_counts = all(r["counts"] == want_counts for r in rs)
+            ok_loss = len({r["losses"][-1] for r in rs}) == 1
+            ok = ok and ok_hops and ok_counts and ok_loss
+            counts_by_arm[arm] = {k: sum(r["counts"][k] for r in rs) for k in want_counts}
+            print(f"[spmd] {cfg.name} {cfg.num_layers} layers d{cfg.d_model} "
+                  f"{cfg.num_heads}x{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} "
+                  f"attn={cfg.attn_impl} {arm}: p{t['p']} data{t['data']} B "
+                  f"{t['batch']} x {t['seq']} in m {t['m']} of {mb}; steps (slowest "
+                  f"rank) {' / '.join(f'{1e3 * x:.2f}' for x in slowest)} ms, median "
+                  f"{1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s; losses "
+                  f"{' / '.join(f'{x:.6f}' for x in rs[0]['losses'])}; "
+                  f"max_memory_allocated per rank "
+                  f"{[round(r['peak'] / 2**30, 2) for r in rs]} GiB; flash launches per "
+                  f"rank {[r['counts'] for r in rs]}; per step (ops, bytes): "
+                  f"collective-permute {sorted(cp)} ({hop} B a hop), all-reduce "
+                  f"{sorted(ar)}; ms in collectives per rank, last step {in_coll}; "
+                  f"transport {ranks[0]['transport']} ({SPMD_TRANSPORT}); "
+                  f"{world} ranks in {wall:.1f} s; card {smi}")
+            print(f"[check] spmd {arm}: hops per step {n_hops} = 2(m + p - 1) - 1"
+                  f"{' + 2(m + p - 1)' if arm == 'bpipe' else ''} on every rank and "
+                  f"step, {hop} B each {ok_hops}; flash launches per rank "
+                  f"{want_counts} = (2, 1, 1) x (m + p - 1) x layers/p x steps "
+                  f"{ok_counts}; one loss on every rank {ok_loss}")
+        same = all(r["same"] for r in ranks)
+        # the single-device reference on the same params and the last batch
+        from repro_torch.data.pipeline import DataConfig, make_batch
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), t["steps"] - 1).items()}
+        ref_loss, ref_norms = spmd_reference(torch, dev, cfg, t, batch)
+        del batch
+        torch.cuda.empty_cache()
+        got = {}
+        for r in ranks:
+            for k, v in r["arms"]["bpipe"]["norms"].items():
+                got[k if not k.startswith("stages") else f"stage {r['stage']} {k}"] = v
+        loss = ranks[0]["arms"]["bpipe"]["losses"][-1]
+        loss_err = abs(loss - ref_loss)
+        rel, worst = max((abs(got[k] - v) / v, k) for k, v in ref_norms.items())
+        ok_ref = (loss_err <= 1e-2 and rel <= SLICED_NORM_RTOL
+                  and set(got) == set(ref_norms))
+        print(f"[check] spmd remat and bpipe last loss and every grad leaf bit-equal "
+              f"on every rank {same}; bpipe last loss {loss:.6f} vs the single-device "
+              f"reference {ref_loss:.6f} (err {loss_err:.3e}, tol 1e-2), per-leaf grad "
+              f"norms max relative err {rel:.3e} ({worst}; tol {SLICED_NORM_RTOL}) "
+              f"{'ok' if same and ok_ref else 'FAIL'}")
+        ok = ok and same and ok_ref
+        # the same program small in fp32: the card against the CPU
+        small = {dv: run_ranks(spmd_rank, SPMD_SMALL["data"] * SPMD_SMALL["p"],
+                               args=(SPMD_SMALL, dv, "cpu"), timeout_s=SPMD_TIMEOUT_S)
+                 for dv in ("cuda", "cpu")}
+        for arm in SPMD_ARMS:
+            errs = [0.0]
+            for rc, rp in zip(small["cuda"], small["cpu"]):
+                a, b = rc["arms"][arm], rp["arms"][arm]
+                errs.append(abs(a["losses"][-1] - b["losses"][-1]))
+                errs += [float(abs(a["grads"][k] - b["grads"][k]).max()) for k in b["grads"]]
+            small_ok = max(errs) <= 1e-5 and all(r["same"] for r in small["cuda"])
+            print(f"[check] spmd {arm} small fp32 (reduced llama-65b, {SPMD_SMALL['layers']} "
+                  f"layers, p {SPMD_SMALL['p']}, B {SPMD_SMALL['batch']} x "
+                  f"{SPMD_SMALL['seq']}): four ranks on the card vs four on the CPU, "
+                  f"loss and grads max_abs_err {max(errs):.3e} (tol 1e-5) "
+                  f"{'ok' if small_ok else 'FAIL'}")
+            ok = ok and small_ok
+        log, _ = dry.communicate(timeout=SPMD_TIMEOUT_S)
+    finally:
+        dry.kill()
+    lines = [ln for ln in log.splitlines() if ln.startswith(("OK pipeline", "FAIL pipeline"))]
+    for ln in lines:
+        print(f"[dryrun] {ln}")
+    dry_ok = dry.returncode == 0 and len(lines) == 4 and all(
+        ln.startswith("OK") for ln in lines)
+    for arch in ("gpt3-96b", "llama-65b"):
+        recs = {}
+        for v in ("1f1b", "bpipe"):
+            path = os.path.join(dry_dir, f"pipeline__{arch}__single__{v}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    recs[v] = json.load(f)
+        if len(recs) < 2:
+            dry_ok = False
+            continue
+        ticks = recs["1f1b"]["ticks"]
+        diff = recs["bpipe"]["collective_permute_ops"] - recs["1f1b"]["collective_permute_ops"]
+        good = (recs["1f1b"]["collective_permute_ops"] == spmd_hops(
+            recs["1f1b"]["num_micro"], recs["1f1b"]["p"], False) and diff == 2 * ticks)
+        print(f"[check] dry run {arch} single: permutes per step 1f1b "
+              f"{recs['1f1b']['collective_permute_ops']}, bpipe "
+              f"{recs['bpipe']['collective_permute_ops']} (2 x {ticks} ticks more) "
+              f"{'ok' if good else 'FAIL'}")
+        dry_ok = dry_ok and good
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    if not (ok and dry_ok):
+        fail("the SPMD pipeline's hops, launches, arms, reference, card-vs-CPU or "
+             "dry run are wrong")
+    return counts_by_arm
+
+
 def n_attn(fam, path):
     """The attention layers of the family's config at ``path``'s depth: each
     flash kernel's launches a pass."""
@@ -2451,6 +2788,9 @@ def main():
     (timed_rows, fam_err), family_counts = families_phase(
         torch, F, fa, ref, qkv, gen, dev, smi)
     hd256_row = timed_rows[HD256[0][7]]
+
+    # -- 14. the SPMD pipeline: four gloo ranks on the one card ----------------------------
+    spmd_counts = spmd_phase(torch, dev, smi)
     family_rows = [row for label, row in timed_rows.items() if label != HD256[0][7]]
 
     def by_path(name):
@@ -2459,11 +2799,11 @@ def main():
                 **{f"sliced pipeline {label}": c[name]
                    for label, c in sliced_counts.items()},
                 **{path: c[name] for path, c in estimate_counts.items()},
-                **{path: c[name] for path, c in family_counts.items()}}
+                **{path: c[name] for path, c in family_counts.items()},
+                **{f"spmd {arm}": c[name] for arm, c in spmd_counts.items()}}
 
-    def launches(name):  # this slice's main paths: its three families' phase 13
-        return sum(c[name] for path, c in family_counts.items()
-                   if path.split()[0] in SLICE_FAMILIES)
+    def launches(name):  # this slice's main path: phase 14, both arms, all ranks
+        return sum(c[name] for c in spmd_counts.values())
 
     def at_family_shapes(name):
         return [row[name] for row in family_rows]

@@ -20,7 +20,10 @@ scale-mask-softmax op with hand-written CUDA forward and backward kernels;
 the paper's estimation path over own copies of the planner, simulator,
 estimator and obs layers (``launch.plan``, ``launch.estimate``,
 ``launch.pipeline --plan auto``, with ``planner.measure`` timing one stage
-and auditing the simulator against the executor on the card).
+and auditing the simulator against the executor on the card); the SPMD
+pipeline over ``torch.distributed`` ranks (``pipeline.spmd``, with the
+BPipe remote stash, ``launch.mesh``, ``launch.ranks``, ``launch.roofline``
+and the fake-group dry run ``launch.pipeline_dryrun``).
 """
 from __future__ import annotations
 

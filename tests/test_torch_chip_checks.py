@@ -75,3 +75,60 @@ def test_grad_agree_ulp_needs_no_witness_within_the_flat_bar():
 
     assert cs.grad_agree_ulp(torch, got, want, "bfloat16", exact) == (
         0.0078125, True, 0, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Phase 14, the SPMD pipeline: the counts it holds the card's run to
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("m,p,want", [(4, 4, (13, 27)), (4, 3, (11, 23)),
+                                      (8, 16, (45, 91)), (4, 16, (37, 75))])
+def test_spmd_hops_per_step(m, p, want):
+    """2T - 1 shifts for T = m + p - 1 ticks; bpipe_stash adds 2T."""
+    assert (cs.spmd_hops(m, p, False), cs.spmd_hops(m, p, True)) == want
+    assert cs.spmd_hops(m, p, True) - cs.spmd_hops(m, p, False) == 2 * (m + p - 1)
+
+
+def test_spmd_hop_bytes_and_launches_at_phase_14():
+    """A hop of llama-65b's microbatch (1 x 2048 x 8192 bf16) is 32 MiB; a
+    rank of phase 14 (one layer, 7 ticks, 3 steps) launches the flash
+    forward 42 times (forward and recompute) and each backward kernel 21."""
+    t = cs.SPMD
+    assert cs.spmd_hop_bytes(t["batch"] // t["m"], t["seq"], 8192, 2) == 32 * 2**20
+    assert cs.spmd_flash_launches(t["m"], t["p"], t["layers"], t["steps"]) == {
+        "flash_attention_fwd": 42, "flash_attention_dq": 21,
+        "flash_attention_dkv": 21}
+
+
+def test_spmd_phase_rehearsed_on_cpu_ranks(monkeypatch):
+    """Phase 14's rank function on four gloo CPU ranks at ``SPMD_SMALL``:
+    every step's hops and bytes as ``spmd_hops`` counts them, the arms bit
+    for bit equal, and the loss and grad norms equal to ``spmd_reference``
+    on the same params at 1e-5."""
+    import sys
+
+    from repro_torch import serve
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.ranks import run_ranks
+    monkeypatch.syspath_prepend(str(ROOT))  # a spawned rank imports chip_smoke
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    t = cs.SPMD_SMALL
+    ranks = run_ranks(cs.spmd_rank, t["p"], args=(t, "cpu", "cpu"), timeout_s=90)
+    cfg = serve.config_for(t["arch"], layers=t["layers"], reduced=True)
+    hop = cs.spmd_hop_bytes(t["batch"] // t["m"], t["seq"], cfg.d_model, 4)
+    for r in ranks:
+        assert r["same"]
+        for arm in cs.SPMD_ARMS:
+            n = cs.spmd_hops(t["m"], t["p"], arm == "bpipe")
+            for c in r["arms"][arm]["counters"]:
+                assert c["ops"]["collective-permute"] == n
+                assert c["bytes"]["collective-permute"] == n * hop
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), t["steps"] - 1).items()}
+    loss, norms = cs.spmd_reference(torch, torch.device("cpu"), cfg, t, batch)
+    got = {}
+    for r in ranks:
+        for k, v in r["arms"]["bpipe"]["norms"].items():
+            got[k if not k.startswith("stages") else f"stage {r['stage']} {k}"] = v
+    assert set(got) == set(norms)
+    assert abs(ranks[0]["arms"]["bpipe"]["losses"][-1] - loss) < 1e-5
+    assert all(abs(got[k] - v) <= 1e-5 * max(v, 1.0) for k, v in norms.items())

@@ -96,12 +96,16 @@ def _node(tree, name):
     ("memory/offload.py", "HOST_OFFLOAD"),
     ("launch/plan.py", "resolve_config"),
     ("launch/plan.py", "main"),
+    ("pipeline/spmd.py", "_bpipe_perms"),
+    ("launch/roofline.py", "extrapolate"),
 ])
 def test_port_modules_keep_the_originals_parts(rel, name):
     """``runtime`` and ``offload`` differ from their twins in how a copy is
     made and waited for; the depth-capped runtime and the policy they
     register are the originals'. ``launch/plan.py`` differs in its chip and
-    link tables (the H100 figures); its CLI is the original's."""
+    link tables (the H100 figures); its CLI is the original's. ``spmd`` and
+    ``roofline`` run over torch.distributed and H100 constants; the BPipe
+    eviction permutation and the block extrapolation are the originals'."""
     copy = _node(_tree(SRC / "repro_torch" / rel), name)
     orig = _node(_tree(SRC / "repro" / rel, rewrite=True), name)
     assert ast.dump(copy) == ast.dump(orig)

@@ -5,8 +5,10 @@ import dataclasses
 import importlib.util
 import inspect
 import math
+import os
 import pathlib
 import re
+import subprocess
 import sys
 
 import pytest
@@ -22,6 +24,7 @@ from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import xlstm as TX
+from repro_torch.pipeline import spmd as TSPMD
 from repro_torch.train import steps as TS
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -47,6 +50,24 @@ def test_port_imports_no_jax_and_no_repro():
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in IMPORT.finditer(f.read_text())]
     assert not bad, bad
+
+
+SPMD_MODULES = ["repro_torch.pipeline.collectives", "repro_torch.pipeline.spmd",
+                "repro_torch.launch.mesh", "repro_torch.launch.ranks",
+                "repro_torch.launch.roofline", "repro_torch.launch.pipeline_dryrun"]
+
+
+@pytest.mark.parametrize("module", SPMD_MODULES)
+def test_spmd_modules_load_neither_jax_nor_repro(module):
+    """Imported alone in a fresh interpreter, each module of the SPMD path
+    pulls in no module of JAX or of the JAX package."""
+    code = (f"import sys, {module}; bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
+            "m.startswith('repro.')]; assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env)
+    assert r.returncode == 0, r.stderr
 
 
 REPRO_STRING = re.compile(r"""["']repro\.""")
@@ -318,6 +339,7 @@ def test_bridge_to_torch_takes_device_without_default():
     TA.init_kv_cache, TB.init_layer, TB.init_layer_state,
     TB.PatternStack.init, TB.PatternStack.init_state, TX.init_mlstm,
     TX.init_slstm, TX.init_mlstm_state, TX.init_slstm_state,
+    TSPMD.init_pipeline_params, TSPMD.from_jax_pipeline_params,
 ], ids=lambda f: f.__qualname__)
 def test_internal_inits_take_device_without_default(fn):
     assert inspect.signature(fn).parameters["device"].default \
