@@ -28,9 +28,7 @@ dynamic): 2T - 1 permutes for T = m + p - 1 ticks, 4T - 1 with BPipe.
 counterpart: it stays null, with the reason in the JSON.
 """
 import argparse
-import dataclasses
 import json
-import math
 import os
 import time
 
@@ -40,7 +38,7 @@ import torch.distributed as dist
 from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.pipeline import collectives
 from repro_torch.pipeline.spmd import init_pipeline_params, make_spmd_train_loss
 
@@ -64,23 +62,14 @@ def _nbytes(tensors) -> int:
 
 
 def run(arch: str, mesh_kind: str, bpipe: bool, *, p=16, B=128, s=2048,
-        num_micro=None, out_dir=None, mesh_shape=None, layers=None):
-    """One dry run. Port-only options, for a quick run: ``mesh_shape``
-    (data, model) takes a host mesh of that size in place of the
-    production mesh ``mesh_kind`` names ("single" or "multi"), which then
-    only names the output file; ``layers`` cuts the depth."""
+        num_micro=None, out_dir=None):
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = get_config(arch)
-    if layers:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
     assert cfg.num_layers % p == 0
-    world = (math.prod(mesh_shape) if mesh_shape
-             else 512 if mesh_kind == "multi" else 256)
-    _fake_world(world)
+    _fake_world(512 if mesh_kind == "multi" else 256)
     try:
-        mesh = (make_host_mesh(*mesh_shape) if mesh_shape
-                else make_production_mesh(multi_pod=(mesh_kind == "multi")))
+        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
         # microbatches stream per data shard: num_micro must divide the
         # local batch (B / data-dims product)
         data = 1

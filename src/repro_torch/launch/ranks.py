@@ -2,8 +2,8 @@
 
 Port-only. ``run_ranks(fn, world, ...)`` spawns ``world`` processes with
 the ``spawn`` start method (a process that has touched CUDA cannot be
-forked), gives each a process group on a free ``tcp://localhost`` port
-with a timeout, calls ``fn(rank, world, *args)`` there and returns the
+forked), gives each a gloo process group on a free ``tcp://localhost``
+port with a timeout, calls ``fn(rank, world, *args)`` there and returns the
 ranks' return values in rank order (each must pickle).
 
 Nothing hangs and nothing fails quietly: the parent waits until a
@@ -13,8 +13,11 @@ ranks still running). Each rank runs one intra-op thread: the ranks share
 the host's cores (on the card, a rank's host work is launches and copies).
 
     from repro_torch.launch.ranks import run_ranks
-    results = run_ranks(my_rank_fn, 4, args=(cfg,), backend="gloo",
-                        timeout_s=60)
+    results = run_ranks(my_rank_fn, 4, args=(cfg,), timeout_s=60)
+
+The backend is gloo and nothing else: the ranks of one host may share one
+card, where NCCL is never set up. One rank a card over NCCL waits for a
+host with two or more cards (ROADMAP A9).
 
 ``fn`` must be a module-level function of a module the child can import
 (a spawned child imports the parent's ``sys.path``). Build a CUDA kernel
@@ -43,11 +46,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, backend, timeout_s, fn, args, out):
+def _rank_main(rank, world, port, timeout_s, fn, args, out):
     torch.set_num_threads(1)
     try:
         dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{port}", rank=rank,
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
         result = fn(rank, world, *args)
         out.put((rank, True, result))
@@ -59,18 +62,16 @@ def _rank_main(rank, world, port, backend, timeout_s, fn, args, out):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *, args=(), backend: str = "gloo",
-              timeout_s: float = 60.0):
+def run_ranks(fn, world: int, *, args=(), timeout_s: float = 60.0):
     """``[fn(rank, world, *args) for rank in range(world)]``, each in a
-    spawned process of a ``world``-rank group on ``backend``. Raises
+    spawned process of a ``world``-rank gloo group. Raises
     ``TimeoutError`` past ``timeout_s`` seconds and ``RankError`` on the
     first rank that fails; every rank is killed before either."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, port, backend, timeout_s, fn, args,
-                               out))
+                         args=(r, world, port, timeout_s, fn, args, out))
              for r in range(world)]
     deadline = time.monotonic() + timeout_s
     results = {}

@@ -264,16 +264,14 @@ def pipeline_loss_fn(cfg: ModelConfig, mesh, p: int, num_micro: int, *,
 
 
 def _data_group(mesh, data_axes):
-    """The group of the ranks that share this rank's stage."""
+    """The group of the ranks that share this rank's stage: the data dims
+    flattened into one (the mesh keeps the flattened dim, so a second call
+    reuses its group)."""
     if not data_axes:
         return None
     if len(data_axes) == 1:
         return mesh.get_group(data_axes[0])
-    names = mesh.mesh_dim_names
-    ranks = mesh.mesh.movedim(names.index("model"), -1)
-    ranks = ranks.reshape(-1, ranks.shape[-1]).T.tolist()
-    group, _ = dist.new_subgroups_by_enumeration(ranks)
-    return group
+    return mesh[data_axes]._flatten().get_group()
 
 
 def make_spmd_train_loss(cfg: ModelConfig, mesh, p: int, num_micro: int,

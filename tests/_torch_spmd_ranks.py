@@ -92,3 +92,19 @@ def failing_rank(rank, world):
         raise ValueError("rank 2 gives up")
     dist.barrier()
     return rank
+
+
+def late_injection_spmd_rank(rank, world, *args):
+    """``chip_smoke.spmd_rank`` with a planted fault: stage 0 injects, at
+    each tick, the tokens it was given at the tick before (zeros at the
+    first), so every microbatch meets its labels one tick late."""
+    import chip_smoke
+
+    plain, seen = spmd.embed, []
+
+    def late(table, tokens, cfg):
+        seen.append(tokens)
+        return plain(table, seen[-2] if len(seen) > 1 else torch.zeros_like(tokens),
+                     cfg)
+    spmd.embed = late
+    return chip_smoke.spmd_rank(rank, world, *args)

@@ -99,11 +99,10 @@ def test_spmd_hop_bytes_and_launches_at_phase_14():
         "flash_attention_dkv": 21}
 
 
-def test_spmd_phase_rehearsed_on_cpu_ranks(monkeypatch):
-    """Phase 14's rank function on four gloo CPU ranks at ``SPMD_SMALL``:
-    every step's hops and bytes as ``spmd_hops`` counts them, the arms bit
-    for bit equal, and the loss and grad norms equal to ``spmd_reference``
-    on the same params at 1e-5."""
+def _spmd_rehearsal(monkeypatch, rank_fn):
+    """``rank_fn`` on four gloo CPU ranks at ``SPMD_SMALL``, handed
+    ``spmd_reference``'s loss and grads on the same params and last batch
+    as phase 14 hands them. Returns the ranks' results and the reference."""
     import sys
 
     from repro_torch import serve
@@ -112,7 +111,33 @@ def test_spmd_phase_rehearsed_on_cpu_ranks(monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))  # a spawned rank imports chip_smoke
     monkeypatch.setitem(sys.modules, "chip_smoke", cs)
     t = cs.SPMD_SMALL
-    ranks = run_ranks(cs.spmd_rank, t["p"], args=(t, "cpu", "cpu"), timeout_s=90)
+    cfg = serve.config_for(t["arch"], layers=t["layers"], reduced=True)
+    batch = {k: torch.from_numpy(v) for k, v in make_batch(
+        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), t["steps"] - 1).items()}
+    loss, grads = cs.spmd_reference(torch, torch.device("cpu"), cfg, t, batch)
+    ref = {"loss": loss, "grads": grads}
+    return run_ranks(rank_fn, t["p"], args=(t, "cpu", "cpu", ref), timeout_s=90), ref
+
+
+def _old_bars(ranks, ref):
+    """The bars phase 14 had before its elementwise check: the loss within
+    1e-2, each leaf's grad norm within 1e-2 relatively."""
+    got = {cs.spmd_ref_key(k, r["stage"]): v
+           for r in ranks for k, v in r["arms"]["bpipe"]["norms"].items()}
+    loss_err = max(r["ref_loss_err"] for r in ranks)
+    norm_err = max(abs(got[k] - float(g.norm())) / float(g.norm())
+                   for k, g in ref["grads"].items())
+    return loss_err <= 1e-2 and norm_err <= 1e-2, loss_err, norm_err
+
+
+def test_spmd_phase_rehearsed_on_cpu_ranks(monkeypatch):
+    """Phase 14's rank function on four gloo CPU ranks at ``SPMD_SMALL``:
+    every step's hops and bytes as ``spmd_hops`` counts them, the arms bit
+    for bit equal, and the loss and every grad leaf within phase 14's bars
+    (``spmd_ref_check``) of ``spmd_reference`` on the same params."""
+    from repro_torch import serve
+    t = cs.SPMD_SMALL
+    ranks, ref = _spmd_rehearsal(monkeypatch, cs.spmd_rank)
     cfg = serve.config_for(t["arch"], layers=t["layers"], reduced=True)
     hop = cs.spmd_hop_bytes(t["batch"] // t["m"], t["seq"], cfg.d_model, 4)
     for r in ranks:
@@ -122,13 +147,23 @@ def test_spmd_phase_rehearsed_on_cpu_ranks(monkeypatch):
             for c in r["arms"][arm]["counters"]:
                 assert c["ops"]["collective-permute"] == n
                 assert c["bytes"]["collective-permute"] == n * hop
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(
-        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), t["steps"] - 1).items()}
-    loss, norms = cs.spmd_reference(torch, torch.device("cpu"), cfg, t, batch)
-    got = {}
-    for r in ranks:
-        for k, v in r["arms"]["bpipe"]["norms"].items():
-            got[k if not k.startswith("stages") else f"stage {r['stage']} {k}"] = v
-    assert set(got) == set(norms)
-    assert abs(ranks[0]["arms"]["bpipe"]["losses"][-1] - loss) < 1e-5
-    assert all(abs(got[k] - v) <= 1e-5 * max(v, 1.0) for k, v in norms.items())
+    ok, loss_err, worst, key = cs.spmd_ref_check(ranks, ref["grads"])
+    print(f"faithful: loss err {loss_err:.3e}, worst leaf {worst:.3e} ({key}); "
+          f"old bars (loss, norm) {_old_bars(ranks, ref)[1:]}")
+    assert ok, (loss_err, worst, key)
+    assert loss_err < 1e-5 and worst < 1e-5
+
+
+def test_spmd_bars_catch_a_one_tick_shift(monkeypatch):
+    """A planted fault: stage 0 injects each microbatch one tick late
+    (``_torch_spmd_ranks.late_injection_spmd_rank``). The hops and the bit
+    equality of the arms cannot see it; phase 14's bars against the
+    reference must."""
+    import _torch_spmd_ranks as R
+    ranks, ref = _spmd_rehearsal(monkeypatch, R.late_injection_spmd_rank)
+    assert all(r["same"] for r in ranks)
+    ok, loss_err, worst, key = cs.spmd_ref_check(ranks, ref["grads"])
+    print(f"one tick late: loss err {loss_err:.3e}, worst leaf {worst:.3e} ({key}); "
+          f"old bars (ok, loss, norm) {_old_bars(ranks, ref)}")
+    assert not ok
+    assert worst > 100 * cs.SPMD_GRAD_RTOL

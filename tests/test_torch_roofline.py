@@ -112,30 +112,46 @@ def test_host_mesh_needs_a_big_enough_world(fake_world):
     assert mesh.mesh_dim_names == ("data", "model")
 
 
+def test_multi_pod_data_group_is_built_once(fake_world):
+    """On the multi-pod mesh a stage's data group spans "pod" and "data":
+    the 32 ranks of model coordinate 0, flattened once and reused."""
+    from repro_torch.pipeline.spmd import _data_group
+    fake_world(512)
+    mesh = make_production_mesh(multi_pod=True)
+    group = _data_group(mesh, ("pod", "data"))
+    assert dist.get_process_group_ranks(group) == list(range(0, 512, 16))
+    assert _data_group(mesh, ("pod", "data")) is group
+
+
 DRYRUN = """
-import sys
+import dataclasses, sys
+from repro_torch import configs
 from repro_torch.launch.pipeline_dryrun import run
+# the depth cut to one layer a stage, in this process only
+configs._REGISTRY["llama-65b"] = dataclasses.replace(
+    configs.get_config("llama-65b"), num_layers=16)
 for bpipe in (False, True):
-    run("llama-65b", "host", bpipe, p=4, B=8, s=64, layers=4, mesh_shape=(2, 4),
-        out_dir=sys.argv[1])
+    run("llama-65b", "single", bpipe, B=32, s=64, out_dir=sys.argv[1])
 """
 
 
 def test_pipeline_dryrun_subprocess(tmp_path):
-    """p 4 over a fake world of 8 (data 2): B 8 gives a local batch of 4,
-    so m 4 and T = 7 ticks; the bpipe file has 2T more permutes a step."""
+    """The production single-pod mesh on a fake world of 256 (data 16, p
+    16), llama-65b cut to 16 layers: B 32 gives a local batch of 2, so m 2
+    and T = 17 ticks; the bpipe file has 2T more permutes a step."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", DRYRUN, str(tmp_path)],
                        capture_output=True, text=True, timeout=120, env=env,
                        cwd=ROOT)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.count("OK pipeline llama-65b host") == 2, r.stdout
-    recs = {v: json.load(open(tmp_path / f"pipeline__llama-65b__host__{v}.json"))
+    assert r.stdout.count("OK pipeline llama-65b single") == 2, r.stdout
+    recs = {v: json.load(open(tmp_path / f"pipeline__llama-65b__single__{v}.json"))
             for v in ("1f1b", "bpipe")}
-    ticks = 4 + 4 - 1
+    ticks = 2 + 16 - 1
     hop = 1 * 64 * 8192 * 2  # mb x s x d, bf16
     for v, rec in recs.items():
-        assert rec["p"] == 4 and rec["num_micro"] == 4 and rec["ticks"] == ticks
+        assert rec["p"] == 16 and rec["num_micro"] == 2 and rec["ticks"] == ticks
+        assert rec["mesh"] == "single"
         assert rec["bpipe_stash"] == (v == "bpipe")
         assert rec["memory"]["temp_bytes"] is None
         assert rec["memory"]["temp_bytes_why"]
