@@ -87,14 +87,16 @@ Phases, each fatal on failure:
      recurrentgemma-2b's serve prefill at b 4, forward, whisper-small's
      decoder at b 8 x 448, forward and backward, and its serve prefill at
      b 4 x 432, forward, internvl2-1b's GQA group of 7 at b 4 x 2048 and
-     its pipelined microbatch at b 1 x 1792, forward and backward), against
+     its pipelined microbatch at b 1 x 1792, forward and backward, and
+     llama-65b's local heads in phase 15's sharded step, b 4 x 16 heads on
+     mesh (1, 4) and b 2 x 32 on (2, 2), forward and backward), against
      their plain versions, twice bit-equal (a bf16 grad element past 2.5e-2
      one ulp off only at a rounding tie that the float64 gradient
      witnesses, on the rows so marked), HD256's first shape and
      ``FAMILY_TIMED`` timed beside SDPA and the bound;
      then ``FAMILIES``: granite-moe-1b-a400m (full width and depth),
      recurrentgemma-2b (full width; 26 layers served, 9 trained and
-     pipelined), xlstm-125m (mLSTM and sLSTM, full width and depth),
+     pipelined), xlstm-125m (mLSTM and sLSTM, full width, 8 of 12 layers),
      whisper-small (12 encoder layers over 1500 frames, 12 decoder layers
      of 448 tokens) and internvl2-1b (256 prefix embeddings before the
      tokens): ``launch.train`` (5 steps, Adam), the pipelined step (1f1b
@@ -128,7 +130,20 @@ Phases, each fatal on failure:
      card against the CPU; meanwhile ``launch.pipeline_dryrun`` runs both
      archs on the single production mesh (a fake process group of 256
      ranks, host only) and its bpipe files must hold 2(m + p - 1) more
-     permutes a step.
+     permutes a step;
+ 15. the sharded train step (``make_train_step(cfg, tcfg, mesh)``, DTensors
+     placed by ``sharding/rules.py``): llama-65b at full width as four ranks
+     of the one card on meshes (data 1, model 4) at 2 layers and (2, 2) at 1
+     layer (``SHARDED``), B 4 x 2048, bf16 compute, fp32 params and moments,
+     flash on each rank's local heads, 3 steps a mesh, the collectives of CUDA
+     tensors staged through pinned host memory into gloo
+     (``launch/staged.py``): step ms (the slowest rank's, median), tokens/s,
+     each rank's peak memory, collective ops and bytes a step by kind, the
+     relocations; checks the grads (``make_loss_grad`` on the mesh) and the
+     first step's loss and updated params on every rank's slices against the single-device step on the same params
+     and batch (``SHARDED_LOSS_RTOL``, ``SHARDED_RTOL``), the same step small
+     in fp32 at the executor's tolerances, one loss on every rank and the
+     flash launches per rank (layers x steps).
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -255,14 +270,18 @@ HD256 = [(1, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b local layer"),
 # element past 2.5e-2 differ by one bf16 ulp only where the gradient's
 # float64 value witnesses a rounding tie (``grad_agree_ulp``): dK and dV sum
 # the group's heads x 2048 rows and reach |want| >= 4, where one ulp is
-# 3.125e-2 (ROADMAP queue C). FAMILY_TIMED's shapes are timed beside SDPA
-# and the bound.
+# 3.125e-2 (ROADMAP queue C). The last two rows are phase 15's: llama-65b's
+# sharded step runs the kernels on each rank's local heads and batch rows,
+# 64 heads over "model" 4 at b 4, over "model" 2 at b 4 / data 2.
+# FAMILY_TIMED's shapes are timed beside SDPA and the bound.
 FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serve", True, "ulp"),
                (4, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b serve prefill", False, "ulp"),
                (8, 448, 12, 12, 64, 0, 0.0, "whisper-small decoder", True, "flat"),
                (4, 432, 12, 12, 64, 0, 0.0, "whisper-small serve prefill", False, "flat"),
                (4, 2048, 14, 2, 64, 0, 0.0, "internvl2-1b", True, "ulp"),
-               (1, 1792, 14, 2, 64, 0, 0.0, "internvl2-1b pipelined microbatch", True, "ulp")]
+               (1, 1792, 14, 2, 64, 0, 0.0, "internvl2-1b pipelined microbatch", True, "ulp"),
+               (4, 2048, 16, 16, 128, 0, 0.0, "llama-65b sharded (1, 4) local heads", True, "ulp"),
+               (2, 2048, 32, 32, 128, 0, 0.0, "llama-65b sharded (2, 2) local heads", True, "ulp")]
 FAMILY_TIMED = ("whisper-small decoder", "internvl2-1b")
 # Each family's paths: train (launch.train, Adam), the pipelined step
 # (PipelineExecutor, 1f1b and bpipe, remat "flash", no Adam) and serve.
@@ -270,7 +289,9 @@ FAMILY_TIMED = ("whisper-small decoder", "internvl2-1b")
 # width: serving at all 26 layers; training and the pipelined step at 9
 # (three pattern blocks): with Adam, params, grads and moments of 26 layers
 # come to about 46 GiB before activations and the 2048 x 256000 logits.
-# xlstm-125m, whisper-small and internvl2-1b at full width and depth.
+# whisper-small and internvl2-1b at full width and depth; xlstm-125m at full
+# width and 8 of its 12 layers (four mLSTM/sLSTM blocks, one a stage at p 4),
+# cut when phase 15 took the script past 1000 s (PERF.md §4).
 # whisper-small's encoder takes ENCODER_FRAMES (1500, its 30 s window) frames
 # a row, its decoder 448 tokens (its published text context); it has no
 # pipelined path (the JAX twin has none). internvl2-1b's rows are 256 prefix
@@ -293,9 +314,9 @@ FAMILIES = [
          pipe=dict(layers=9, p=3, micro=1, m=4, seq=2048, steps=3),
          serve=dict(layers=26, batch=4, prompt=2048, gen=16)),
     dict(arch="xlstm-125m",
-         train=dict(layers=12, batch=4, seq=2048, steps=5),
-         pipe=dict(layers=12, p=4, micro=1, m=4, seq=2048, steps=1),
-         serve=dict(layers=12, batch=4, prompt=2048, gen=16),
+         train=dict(layers=8, batch=4, seq=2048, steps=5),
+         pipe=dict(layers=8, p=4, micro=1, m=4, seq=2048, steps=1),
+         serve=dict(layers=8, batch=4, prompt=2048, gen=16),
          profile_seq=dict(train=64, pipe=16, serve=128)),
     dict(arch="whisper-small",
          train=dict(layers=12, batch=8, seq=448, steps=5),
@@ -327,6 +348,30 @@ SPMD_LOSS_TOL, SPMD_GRAD_RTOL = 1e-4, 1e-3
 SPMD_TIMEOUT_S = 600
 SPMD_TRANSPORT = ("gloo, 4 ranks share one card, hops staged through host "
                   "memory: these times say nothing of NVLink")
+
+# phase 15, the sharded train step (``train/steps.py`` with a mesh, DTensors
+# placed by ``sharding/rules.py``): llama-65b at full width as four ranks
+# sharing the one card (``launch.ranks``, collectives of CUDA tensors staged
+# through pinned host memory by ``launch/staged.py``), B 4 x 2048, bf16
+# compute, fp32 params and Adam moments, flash on each rank's local heads,
+# remat none, 3 steps a mesh: (data, model, layers). Reckoned bytes: a layer's
+# fp32 params are 3.24 GB, the table and head 1.05 GB each; a rank holds
+# params, grads and two moments of its shard, 8.6 GB at (1, 4) x 2 layers and
+# 10.7 GB at (2, 2) x 1 layer, beside its activations and the fp32 logits of
+# its rows; the parent holds the reference's grads and updated params (17.2 /
+# 10.7 GB).
+SHARDED = dict(arch="llama-65b", batch=4, seq=2048, steps=3, reduced=False,
+               meshes=((1, 4, 2), (2, 2, 1)))
+# the same step small in fp32 (reduced llama-65b, TF32 off) on each mesh
+SHARDED_SMALL = dict(arch="llama-65b", batch=4, seq=32, layers=2, steps=1,
+                     reduced=True)
+# bars against the single-device step on the same params and batch: bf16 (the
+# loss relatively; each leaf's max |got - want| / max |want| over the rank's
+# slice: row-parallel bf16 partial sums are added in another order), and
+# fp32 at the executor's tolerances (tests/test_executor.py:34-37)
+SHARDED_LOSS_RTOL, SHARDED_RTOL = 1e-3, 3e-2
+SHARDED_FP32_LOSS, SHARDED_FP32_ATOL, SHARDED_FP32_RTOL = 1e-5, 2e-6, 1e-4
+SHARDED_TIMEOUT_S = 600
 
 
 def fail(msg):
@@ -2207,7 +2252,7 @@ def spmd_rank(rank, world, t, device, init_device, ref=None):
         torch.backends.cudnn.allow_tf32 = False
     cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
                            reduced=t["reduced"])
-    mesh = make_host_mesh(t["data"], t["p"])
+    mesh = make_host_mesh(t["data"], t["p"], "cpu")
     stage, d = mesh.get_local_rank("model"), mesh.get_local_rank("data")
     params = spmd.init_pipeline_params(torch.Generator(init_device).manual_seed(0),
                                        cfg, t["p"], stage, init_device)
@@ -2388,7 +2433,7 @@ def spmd_phase(torch, dev, smi):
         try:
             ranks = run_ranks(spmd_rank, world, args=(
                 t, "cuda", "cuda", {"loss": ref_loss, "grads": ref_grads}),
-                timeout_s=SPMD_TIMEOUT_S)
+                timeout_s=SPMD_TIMEOUT_S, staged_key="CUDA")
         finally:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         wall = time.perf_counter() - t0
@@ -2446,7 +2491,8 @@ def spmd_phase(torch, dev, smi):
         ok = ok and same and ok_ref
         # the same program small in fp32: the card against the CPU
         small = {dv: run_ranks(spmd_rank, SPMD_SMALL["data"] * SPMD_SMALL["p"],
-                               args=(SPMD_SMALL, dv, "cpu"), timeout_s=SPMD_TIMEOUT_S)
+                               args=(SPMD_SMALL, dv, "cpu"), timeout_s=SPMD_TIMEOUT_S,
+                               staged_key="CUDA")
                  for dv in ("cuda", "cpu")}
         for arm in SPMD_ARMS:
             errs = [0.0]
@@ -2493,6 +2539,294 @@ def spmd_phase(torch, dev, smi):
         fail("the SPMD pipeline's hops, launches, arms, reference, card-vs-CPU or "
              "dry run are wrong")
     return counts_by_arm
+
+
+def sharded_tcfg(t):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(global_batch=t["batch"], seq_len=t["seq"], remat="none")
+
+
+def sharded_batch(torch, dev, cfg, t):
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    return {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, DataConfig(batch=t["batch"], seq_len=t["seq"]), 0).items()}
+
+
+def sharded_flash_launches(layers, steps):
+    """Each flash kernel's launches a rank over ``steps`` steps at remat
+    none: every attention layer forward once and backward once a step."""
+    n = layers * steps
+    return {"flash_attention_fwd": n, "flash_attention_dq": n,
+            "flash_attention_dkv": n}
+
+
+def sharded_reference(torch, dev, cfg, t):
+    """The single-device train step (``make_train_step(cfg, tcfg)``, no mesh)
+    on the params every rank draws (seed 0) and the batch of step 0: its
+    loss, and its grads and updated params keyed by path."""
+    from repro_torch import tree as T
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    from repro_torch.train.steps import make_loss_grad, make_train_step
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    batch = sharded_batch(torch, dev, cfg, t)
+    _, grads = make_loss_grad(cfg, sharded_tcfg(t))(params, batch)
+    params, opt, metrics = make_train_step(cfg, sharded_tcfg(t))(
+        params, adam.init(params), batch)
+    del opt, batch
+    name = lambda p: "/".join(map(str, p))
+    return (float(metrics["total"]),
+            {name(p): g for p, g in T.leaves_with_paths(grads)},
+            {name(p): x for p, x in T.leaves_with_paths(params)})
+
+
+def sharded_errs(torch, tree, want, mesh):
+    """Each local shard of DTensor ``tree`` against the slice of the
+    reference's full tensor it holds: {path: (max |got - want| / max |want|,
+    whether every element is within the fp32 bars)}."""
+    from repro_torch import tree as T
+    from repro_torch.sharding import rules
+    out = {}
+    for path, x in T.leaves_with_paths(tree):
+        key = "/".join(map(str, path))
+        w = want[key][rules.local_slices(x.shape, mesh, x.placements)].to(x.device)
+        got = x.to_local()
+        diff = (got - w).abs()
+        out[key] = (float(diff.max() / w.abs().max().clamp_min(1e-30)),
+                    bool((diff <= SHARDED_FP32_ATOL + SHARDED_FP32_RTOL * w.abs()).all()))
+        del w, got, diff
+    return out
+
+
+def sharded_rank(rank, world, t, device, refs, fault=False):
+    """Phase 15 on one rank (spawned by ``launch.ranks.run_ranks``): the
+    sharded train step of ``t``'s model on a (data, model) mesh of the ranks,
+    params drawn on ``device`` from seed 0 by one rank at a time (each keeps
+    its shards), the batch of step 0. With ``refs["small"]`` it first runs
+    one step of ``SHARDED_SMALL`` in fp32 against that reference. Then the
+    grads of the drawn params (``make_loss_grad`` on the mesh) and
+    ``t["steps"]`` steps, each timed on this rank (a barrier before, a
+    synchronise after), the flash counts set to 0 just before the steps and
+    read just after, the collective counter read each step; the grads and
+    the first step's loss and updated params are held to ``refs["full"]``
+    (the parent's, shared over CUDA IPC) slice by slice. ``fault`` rolls rank 1's local
+    ``wq`` shard by one head before the steps (a planted fault the bars must
+    catch)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import serve
+    from repro_torch import tree as T
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import staged
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.optim import adam
+    from repro_torch.pipeline import collectives as C
+    from repro_torch.sharding import rules
+    from repro_torch.train.steps import make_loss_grad, make_train_step
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_host_mesh(t["data"], t["model"], dev.type)
+    out = {"rank": rank, "coords": [mesh.get_local_rank(n) for n in ("data", "model")],
+           "transport": staged.TRANSPORT if cuda else "gloo (CPU tensors)"}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def draw(cfg, tt, serial):
+        """(DTensor params, shardings' placements, DTensor batch)."""
+        batch = sharded_batch(torch, dev, cfg, tt)
+        dparams = ps = None
+        for r in range(world) if serial else (rank,):
+            if r == rank:
+                full = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+                ps, _, bs = make_train_step(cfg, sharded_tcfg(tt), mesh)[1](full, None, batch)
+                dparams = rules.distribute(full, mesh, ps)
+                del full
+                if cuda:
+                    torch.cuda.empty_cache()
+            if serial:
+                dist.barrier()
+        return dparams, rules.distribute(batch, mesh, bs)
+
+    if "small" in refs:
+        small = dict(SHARDED_SMALL, data=t["data"], model=t["model"])
+        cfg = serve.config_for(small["arch"], layers=small["layers"],
+                               attn_impl="flash", reduced=True)
+        dparams, dbatch = draw(cfg, small, serial=False)
+        loss, grads, params = refs["small"]
+        _, g = make_loss_grad(cfg, sharded_tcfg(small), mesh)(dparams, dbatch)
+        out["small"] = {"grads": sharded_errs(torch, g, grads, mesh)}
+        step, _ = make_train_step(cfg, sharded_tcfg(small), mesh)
+        new, _, m = step(dparams, adam.init(dparams), dbatch)
+        out["small"].update(loss_err=abs(float(m["total"].full_tensor()) - loss),
+                            params=sharded_errs(torch, new, params, mesh))
+        grads.clear()  # the parent's tensors, released at once
+        params.clear()
+        del dparams, dbatch, new, m, g, step
+
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
+                           reduced=t["reduced"])
+    rules.RELOCATIONS.clear()
+    A.FLASH_REDISTRIBUTIONS.clear()
+    dparams, dbatch = draw(cfg, t, serial=True)
+    if fault and rank == 1:
+        wq = dparams["blocks"]["pos0"]["mixer"]["wq"].to_local()
+        wq.copy_(torch.roll(wq, 1, dims=2))  # (layers, d, local heads, hd)
+    opt = adam.init(dparams)
+    loss, grads, params = refs["full"]
+    # the grads of step 0's params, held to the reference's and let go of
+    # before the steps (the parent's memory too, now, not at exit)
+    _, g = make_loss_grad(cfg, sharded_tcfg(t), mesh)(dparams, dbatch)
+    out["grads"] = sharded_errs(torch, g, grads, mesh)
+    grads.clear()
+    del g
+    step, _ = make_train_step(cfg, sharded_tcfg(t), mesh)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    counts_zero(fa)
+    times, losses, counters = [], [], []
+    for i in range(t["steps"]):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        C.reset()
+        dparams, opt, m = step(dparams, opt, dbatch)
+        sync()
+        times.append(time.perf_counter() - t0)
+        counters.append(C.read())
+        losses.append(float(m["total"].full_tensor()))
+        if i == 0:
+            out["loss_err"] = abs(losses[0] - loss) / abs(loss)
+            out["params"] = sharded_errs(torch, dparams, params, mesh)
+            params.clear()
+        del m
+    out.update(times=times, losses=losses, counters=counters, counts=counts_read(fa),
+               peak=torch.cuda.max_memory_allocated() if cuda else None,
+               relocations=sorted({(tag, d, -1 if d2 is None else d2)
+                                   for tag, _, d, d2, _ in rules.RELOCATIONS}),
+               redistributions=[[str(x) for x in e] for e in A.FLASH_REDISTRIBUTIONS])
+    return out
+
+
+def sharded_check(ranks, want_keys):
+    """Phase 15's bf16 bars over every rank: (ok, the worst loss error
+    (relative), the worst leaf's error and key). Every leaf of the reference
+    must be checked on some rank, grads and updated params."""
+    errs = {f"{kind} {k}": v[0] for r in ranks for kind in ("grads", "params")
+            for k, v in r[kind].items()}
+    loss_err = max(r["loss_err"] for r in ranks)
+    worst, key = max((v, k) for k, v in errs.items())
+    ok = (set(errs) == {f"{kind} {k}" for kind in ("grads", "params") for k in want_keys}
+          and loss_err <= SHARDED_LOSS_RTOL and worst <= SHARDED_RTOL)
+    return ok, loss_err, worst, key
+
+
+def sharded_small_check(ranks):
+    """The fp32 bars of the small step: (ok, loss error, worst leaf's max
+    |got - want| / max |want|)."""
+    loss_err = max(r["small"]["loss_err"] for r in ranks)
+    leaves = [v for r in ranks for kind in ("grads", "params")
+              for v in r["small"][kind].values()]
+    ok = loss_err <= SHARDED_FP32_LOSS and all(
+        within for _, within in leaves)
+    return ok, loss_err, max(v for v, _ in leaves)
+
+
+def sharded_phase(torch, dev, smi):
+    """Phase 15: the sharded train step on four ranks of the one card, one
+    spawn a mesh. Returns each mesh's flash launch counts summed over the
+    ranks."""
+    import statistics
+
+    from repro_torch import serve
+    from repro_torch.launch.ranks import run_ranks
+
+    counts_by_mesh, ok = {}, True
+    for data, model, layers in SHARDED["meshes"]:
+        t = dict(SHARDED, data=data, model=model, layers=layers)
+        world = data * model
+        cfg = serve.config_for(t["arch"], layers=layers, attn_impl="flash")
+        t0 = time.perf_counter()
+        loss, grads, params = sharded_reference(torch, dev, cfg, t)
+        keys = sorted(grads)
+        # through the host and back, so the kept tensors lie in blocks of
+        # their own and none holds the reference's freed activations reserved
+        grads = {k: g.cpu() for k, g in grads.items()}
+        params = {k: x.cpu() for k, x in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        grads = {k: g.to(dev) for k, g in grads.items()}
+        params = {k: x.to(dev) for k, x in params.items()}
+        scfg = serve.config_for(SHARDED_SMALL["arch"], layers=SHARDED_SMALL["layers"],
+                                attn_impl="flash", reduced=True)
+        small = sharded_reference(torch, dev, scfg, SHARDED_SMALL)
+        print(f"[sharded] mesh ({data}, {model}): the single-device reference "
+              f"({layers} layers) in {time.perf_counter() - t0:.1f} s, the parent "
+              f"holding its grads and updated params: memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+        t0 = time.perf_counter()
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks = run_ranks(sharded_rank, world, args=(
+                t, "cuda", {"full": (loss, grads, params), "small": small}),
+                timeout_s=SHARDED_TIMEOUT_S, staged_key="CUDA")
+        finally:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        wall = time.perf_counter() - t0
+        del grads, params, small
+        torch.cuda.empty_cache()
+        slowest = [max(r["times"][i] for r in ranks) for i in range(t["steps"])]
+        step_s = statistics.median(slowest)
+        tokens = t["batch"] * t["seq"]
+        want_counts = sharded_flash_launches(layers, t["steps"])
+        ok_counts = all(r["counts"] == want_counts for r in ranks)
+        ok_loss = len({tuple(r["losses"]) for r in ranks}) == 1
+        coll = sorted({(k, c["ops"][k], int(c["bytes"][k])) for r in ranks
+                       for c in r["counters"] for k in c["ops"] if c["ops"][k]})
+        in_coll = [round(sum(r["counters"][-1]["seconds"].values()) * 1e3, 1)
+                   for r in ranks]
+        ok_ref, loss_err, worst, key = sharded_check(ranks, keys)
+        ok_small, small_loss, small_worst = sharded_small_check(ranks)
+        ok = ok and ok_counts and ok_loss and ok_ref and ok_small
+        counts_by_mesh[f"({data}, {model})"] = {
+            k: sum(r["counts"][k] for r in ranks) for k in want_counts}
+        print(f"[sharded] {cfg.name} {layers} layers d{cfg.d_model} {cfg.num_heads}x"
+              f"{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} attn={cfg.attn_impl} mesh "
+              f"(data {data}, model {model}): B {t['batch']} x {t['seq']}; steps "
+              f"(slowest rank) {' / '.join(f'{1e3 * x:.2f}' for x in slowest)} ms, "
+              f"median {1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s; losses "
+              f"{' / '.join(f'{x:.6f}' for x in ranks[0]['losses'])}; "
+              f"max_memory_allocated per rank "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB; flash launches per "
+              f"rank {[r['counts'] for r in ranks]}; collectives a step (kind, ops, "
+              f"bytes) {coll}; ms in collectives per rank, last step {in_coll}; "
+              f"relocations {ranks[0]['relocations']}; q/k/v redistributed before "
+              f"flash {ranks[0]['redistributions']}; transport {ranks[0]['transport']} "
+              f"(4 ranks share one card: the times say nothing of NVLink); {world} "
+              f"ranks in {wall:.1f} s; card {smi}")
+        print(f"[check] sharded ({data}, {model}): loss vs the single-device step "
+              f"relative err {loss_err:.3e} (tol {SHARDED_LOSS_RTOL}); grads and "
+              f"updated params, each rank's slice, max |got - want| / max |want| "
+              f"{worst:.3e} ({key}; tol {SHARDED_RTOL}) {'ok' if ok_ref else 'FAIL'}; "
+              f"fp32 small (reduced llama-65b, {SHARDED_SMALL['layers']} layers, B "
+              f"{SHARDED_SMALL['batch']} x {SHARDED_SMALL['seq']}) loss err "
+              f"{small_loss:.3e} (tol {SHARDED_FP32_LOSS}), worst leaf {small_worst:.3e}, "
+              f"every element within {SHARDED_FP32_ATOL} + {SHARDED_FP32_RTOL}|want| "
+              f"{'ok' if ok_small else 'FAIL'}; flash launches per rank {want_counts} "
+              f"= layers x steps {ok_counts}; one loss on every rank {ok_loss}")
+    if not ok:
+        fail("the sharded train step's launches, losses or bars against the "
+             "single-device step are wrong")
+    return counts_by_mesh
 
 
 def n_attn(fam, path):
@@ -2835,6 +3169,9 @@ def main():
 
     # -- 14. the SPMD pipeline: four gloo ranks on the one card ----------------------------
     spmd_counts = spmd_phase(torch, dev, smi)
+
+    # -- 15. the sharded train step: four ranks on the one card, two meshes ----------------
+    sharded_counts = sharded_phase(torch, dev, smi)
     family_rows = [row for label, row in timed_rows.items() if label != HD256[0][7]]
 
     def by_path(name):
@@ -2844,10 +3181,11 @@ def main():
                    for label, c in sliced_counts.items()},
                 **{path: c[name] for path, c in estimate_counts.items()},
                 **{path: c[name] for path, c in family_counts.items()},
-                **{f"spmd {arm}": c[name] for arm, c in spmd_counts.items()}}
+                **{f"spmd {arm}": c[name] for arm, c in spmd_counts.items()},
+                **{f"sharded {mesh}": c[name] for mesh, c in sharded_counts.items()}}
 
-    def launches(name):  # this slice's main path: phase 14, both arms, all ranks
-        return sum(c[name] for c in spmd_counts.values())
+    def launches(name):  # this slice's main path: phase 15, both meshes, all ranks
+        return sum(c[name] for c in sharded_counts.values())
 
     def at_family_shapes(name):
         return [row[name] for row in family_rows]

@@ -4,11 +4,13 @@ names, as the JAX package's registry.
 The port keeps its own copy of every config module; ``tests/test_torch_guard.py``
 holds each one equal, field by field, to its JAX twin so the copies cannot
 drift. ``longcontext`` (the long-context cases) is a copy held equal by
-``tests/test_torch_core.py``; the assignment's input shapes are not ported
-yet.
+``tests/test_torch_core.py``; the assignment's input shapes (``InputShape``,
+``INPUT_SHAPES``, ``shape_applicable``) are copies held equal by
+``tests/test_torch_specs.py``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
@@ -61,3 +63,31 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {list_configs()}")
     return _REGISTRY[name]
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to this paper.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> bool:
+    """The assignment's applicability rules (the twin's skips)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False  # full-attention archs skip 500k decode
+    if cfg.is_encdec and shape.name == "long_500k":
+        return False  # 500k-token decode has no audio use-case
+    return True

@@ -18,14 +18,15 @@ which this run counts, do not depend on the attention arm.
 Writes experiments/dryrun_torch/pipeline__<arch>__<mesh>__<variant>.json
 (never the JAX twin's directory) with the collective-permute ops and bytes
 (the eviction hops) and the all-reduce ops and bytes of one step on rank
-0, and the argument bytes (the rank's params plus its batch shard).
+0, the argument bytes (the rank's params plus its batch shard) and the
+temp bytes: the peak of ``MemTracker`` over the step less the arguments,
+torch's number for what the twin's ``memory_analysis()`` calls temporaries
+(``launch/dryrun.py``'s ``TEMP_BYTES_SOURCE``).
 
 Where the counts differ from the twin's: the twin counts the ops of the
 compiled HLO, where a ``lax.scan`` body holds each tick's ops once; here
 the port's collective counter counts the ops a step runs (per step,
 dynamic): 2T - 1 permutes for T = m + p - 1 ticks, 4T - 1 with BPipe.
-``temp_bytes`` (the twin's ``memory_analysis()``) has no FakeTensor
-counterpart: it stays null, with the reason in the JSON.
 """
 import argparse
 import json
@@ -38,23 +39,13 @@ import torch.distributed as dist
 from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.launch import roofline as rl
+from repro_torch.launch.dryrun import TEMP_BYTES_SOURCE, fake_world
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.pipeline import collectives
 from repro_torch.pipeline.spmd import init_pipeline_params, make_spmd_train_loss
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
-TEMP_BYTES_WHY = ("FakeTensorMode allocates nothing, so no peak of temporaries "
-                  "is measured (ROADMAP A11, with dryrun.py's memory analysis)")
-
-
-def _fake_world(world: int):
-    """Make this process rank 0 of a ``world``-rank fake process group: its
-    collectives return at once and move nothing."""
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    if dist.is_initialized():
-        dist.destroy_process_group()
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 
 def _nbytes(tensors) -> int:
@@ -64,12 +55,14 @@ def _nbytes(tensors) -> int:
 def run(arch: str, mesh_kind: str, bpipe: bool, *, p=16, B=128, s=2048,
         num_micro=None, out_dir=None):
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
 
     cfg = get_config(arch)
     assert cfg.num_layers % p == 0
-    _fake_world(512 if mesh_kind == "multi" else 256)
+    fake_world(512 if mesh_kind == "multi" else 256)
     try:
-        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"),
+                                    device_type="cpu")
         # microbatches stream per data shard: num_micro must divide the
         # local batch (B / data-dims product)
         data = 1
@@ -86,11 +79,17 @@ def run(arch: str, mesh_kind: str, bpipe: bool, *, p=16, B=128, s=2048,
                                           p, stage, "cpu")
             batch = {"tokens": torch.zeros((local_b, s), dtype=torch.int32),
                      "labels": torch.zeros((local_b, s), dtype=torch.int32)}
-            arg_bytes = _nbytes(T.leaves(params) + list(batch.values()))
+            arguments = T.leaves(params) + list(batch.values())
+            arg_bytes = _nbytes(arguments)
+            tracker = MemTracker()
+            tracker.track_external(*arguments)
             collectives.reset()
             t0 = time.time()
-            step(params, batch)
+            with tracker:
+                step(params, batch)
             t_run = time.time() - t0
+            peak = sum(v.get("Total", 0) for v in
+                       tracker.get_tracker_snapshot("peak").values())
         coll, ops = rl.collective_bytes(), collectives.read()["ops"]
     finally:
         dist.destroy_process_group()
@@ -98,8 +97,9 @@ def run(arch: str, mesh_kind: str, bpipe: bool, *, p=16, B=128, s=2048,
         "arch": arch, "mesh": mesh_kind, "p": p, "num_micro": num_micro,
         "bpipe_stash": bpipe, "ticks": num_micro + p - 1,
         "t_run_s": round(t_run, 2),
-        "memory": {"argument_bytes": arg_bytes, "temp_bytes": None,
-                   "temp_bytes_why": TEMP_BYTES_WHY},
+        "memory": {"argument_bytes": arg_bytes,
+                   "temp_bytes": max(peak - arg_bytes, 0),
+                   "temp_bytes_source": TEMP_BYTES_SOURCE},
         "collective_bytes": coll,
         "collective_ops": ops,
         "collective_permute_ops": ops["collective-permute"],
@@ -112,7 +112,7 @@ def run(arch: str, mesh_kind: str, bpipe: bool, *, p=16, B=128, s=2048,
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(rec, f, indent=1)
     print(f"OK pipeline {arch} {mesh_kind} bpipe={bpipe} "
-          f"run={t_run:.1f}s temp=null "
+          f"run={t_run:.1f}s temp={rec['memory']['temp_bytes'] / 2**30:.2f}GiB "
           f"cp_ops={rec['collective_permute_ops']} "
           f"cp_bytes={coll['collective-permute']/2**30:.2f}GiB "
           f"ar_ops={ops['all-reduce']} "

@@ -15,9 +15,11 @@ the host's cores (on the card, a rank's host work is launches and copies).
     from repro_torch.launch.ranks import run_ranks
     results = run_ranks(my_rank_fn, 4, args=(cfg,), timeout_s=60)
 
-The backend is gloo and nothing else: the ranks of one host may share one
-card, where NCCL is never set up. One rank a card over NCCL waits for a
-host with two or more cards (ROADMAP A9).
+The backend is gloo and nothing else, with the collectives of CUDA
+tensors staged through pinned host memory where asked
+(``launch/staged.py``): the ranks of one host may share one card, where
+NCCL is never set up. One rank a card over NCCL waits for a host with two
+or more cards (ROADMAP A9).
 
 ``fn`` must be a module-level function of a module the child can import
 (a spawned child imports the parent's ``sys.path``). Build a CUDA kernel
@@ -46,9 +48,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, world, port, timeout_s, fn, args, out):
+def _rank_main(rank, world, port, timeout_s, fn, args, out, staged_key):
     torch.set_num_threads(1)
     try:
+        if staged_key:
+            from repro_torch.launch import staged
+            staged.install(staged_key)
         dist.init_process_group(
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
@@ -62,16 +67,21 @@ def _rank_main(rank, world, port, timeout_s, fn, args, out):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *, args=(), timeout_s: float = 60.0):
+def run_ranks(fn, world: int, *, args=(), timeout_s: float = 60.0,
+              staged_key: str = ""):
     """``[fn(rank, world, *args) for rank in range(world)]``, each in a
-    spawned process of a ``world``-rank gloo group. Raises
+    spawned process of a ``world``-rank gloo group. ``staged_key="CUDA"``
+    installs ``launch/staged.py``'s kernels in each rank first (CUDA
+    tensors' collectives staged through host memory into gloo, for
+    DTensors on the card; the tests take ``"CPU"``). Raises
     ``TimeoutError`` past ``timeout_s`` seconds and ``RankError`` on the
     first rank that fails; every rank is killed before either."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, port, timeout_s, fn, args, out))
+                         args=(r, world, port, timeout_s, fn, args, out,
+                               staged_key))
              for r in range(world)]
     deadline = time.monotonic() + timeout_s
     results = {}

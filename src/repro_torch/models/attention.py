@@ -45,16 +45,32 @@ def init_attention(gen, cfg, device, cross=False):
     return p
 
 
+def _shards_dim(t, dim) -> bool:
+    """Whether DTensor ``t`` is sharded on ``dim`` (False for a plain
+    tensor): merging that dim into the one before it is not a plain
+    shard."""
+    return any(getattr(p, "dim", None) == dim
+               for p in getattr(t, "placements", ()))
+
+
 def _heads(x, w):
     """The einsum "bsd,dnh->bsnh" of x with a (d, n, h) weight, as one
-    ``cast_matmul``."""
+    ``cast_matmul``. A DTensor weight sharded on head_dim (a relocation)
+    is merged (h n) instead of (n h), which keeps its shard a plain one."""
     d, n, h = w.shape
+    if _shards_dim(w, 2):
+        y = cast_matmul(x, w.transpose(1, 2).reshape(d, h * n))
+        return y.unflatten(-1, (h, n)).transpose(-1, -2)
     return cast_matmul(x, w.reshape(d, n * h)).unflatten(-1, (n, h))
 
 
 def _merge_heads(out, w):
-    """The einsum "bsnh,nhd->bsd" of the heads with an (n, h, d) weight."""
+    """The einsum "bsnh,nhd->bsd" of the heads with an (n, h, d) weight;
+    summed over (h n) where head_dim is sharded, as ``_heads``."""
     n, h, d = w.shape
+    if _shards_dim(w, 1) or _shards_dim(out, out.ndim - 1):
+        return cast_matmul(out.transpose(-1, -2).flatten(-2),
+                           w.transpose(0, 1).reshape(h * n, d))
     return cast_matmul(out.flatten(-2), w.reshape(n * h, d))
 
 
@@ -85,6 +101,22 @@ def _project_kv(p, x, cfg, positions):
 
 
 def _sdpa(q, k, v, cfg, q_pos, k_pos, *, causal, window):
+    """Reference scaled-dot-product attention with additive masking; on
+    DTensors, over each rank's local heads and batch rows as ``_flash``
+    (``_on_local_heads``): DTensor plans the redistributions of the 5-dim
+    score einsums for seconds a layer, and some PyTorch releases refuse
+    them."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(q, DTensor):
+        return _sdpa_plain(q, k, v, cfg, q_pos, k_pos, causal=causal,
+                           window=window)
+    return _on_local_heads(
+        q, k, v, lambda ql, kl, vl, qp, kp: _sdpa_plain(
+            ql, kl, vl, cfg, qp, kp, causal=causal, window=window),
+        q_pos, k_pos)
+
+
+def _sdpa_plain(q, k, v, cfg, q_pos, k_pos, *, causal, window):
     """Reference scaled-dot-product attention with additive masking.
 
     q: (b, sq, nq, hd); k/v: (b, sk, nkv, hd); *_pos: (b, s*) int.
@@ -113,10 +145,80 @@ def _sdpa(q, k, v, cfg, q_pos, k_pos, *, causal, window):
     return out.reshape(b, sq, nq, hd)
 
 
+# Redistributions of q/k/v that ``_flash`` and ``_sdpa`` ran before the
+# attention on a mesh, each (q's placements, k's placements, the placements
+# the attention took); the dry run clears and records them, as it does the
+# rules' relocations.
+FLASH_REDISTRIBUTIONS: list = []
+
+
+def _flash_placements(q, k):
+    """The placements q, k and v enter the kernel with, one per mesh dim: a
+    batch shard stays; a head shard stays where the kv heads divide the mesh
+    dim (each rank's q heads are then the groups of its kv heads); any other
+    mesh dim (a shard of head_dim after a relocation, of heads that do not
+    divide or of the sequence, a partial sum, a replica) shards the batch
+    rows further where they divide it, and is replicated only where they do
+    not: every placement but the last gives each rank whole rows and whole
+    kv groups, so none computes another's attention."""
+    from torch.distributed.tensor import Replicate, Shard
+    nq, nkv = q.shape[2], k.shape[2]
+    mesh = q.device_mesh
+    pairs = list(zip(q.placements, k.placements))
+    rows = q.shape[0]
+    for i, (pq, pk) in enumerate(pairs):  # the batch shards that stay
+        if pq == Shard(0) and pk == Shard(0):
+            rows //= mesh.size(i)
+    out = []
+    for i, (pq, pk) in enumerate(pairs):
+        size = mesh.size(i)
+        if pq == Shard(0) and pk == Shard(0):
+            out.append(Shard(0))
+        elif Shard(2) in (pq, pk) and nq % size == 0 and nkv % size == 0:
+            out.append(Shard(2))
+        elif rows % size == 0:
+            out.append(Shard(0))
+            rows //= size
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _on_local_heads(q, k, v, compute, *positions):
+    """``compute(q, k, v, *positions)`` on this rank's local q/k/v, taken
+    with ``_flash_placements`` (each redistribution recorded), and the rows
+    of each (b, s) position tensor that go with its local batch rows; the
+    result a DTensor of the same placements."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import local_range
+    mesh, want = q.device_mesh, _flash_placements(q, k)
+    if tuple(q.placements) != want or tuple(k.placements) != want \
+            or tuple(v.placements) != want:
+        entry = (tuple(q.placements), tuple(k.placements), want)
+        if entry not in FLASH_REDISTRIBUTIONS:
+            FLASH_REDISTRIBUTIONS.append(entry)
+    ql, kl, vl = (t.redistribute(mesh, want).to_local() for t in (q, k, v))
+    lo, hi = local_range(q.shape[0], mesh, want, 0)
+    rows = [(p.full_tensor() if isinstance(p, DTensor) else p)[lo:hi]
+            for p in positions]
+    return DTensor.from_local(compute(ql, kl, vl, *rows), mesh, want,
+                              run_check=False)
+
+
 def _flash(q, k, v, cfg, *, window, q_offset=0):
+    """The flash kernel over q/k/v; on DTensors, over each rank's local
+    heads and batch rows (``_on_local_heads``): the kernel never sees a
+    DTensor or a head_dim shard."""
+    from torch.distributed.tensor import DTensor
+
     from repro_torch.kernels import ops
-    return ops.flash_attention(q, k, v, causal=True, window=window or 0,
-                               softcap=cfg.attn_softcap, q_offset=q_offset)
+    kw = dict(causal=True, window=window or 0, softcap=cfg.attn_softcap,
+              q_offset=q_offset)
+    if not isinstance(q, DTensor):
+        return ops.flash_attention(q, k, v, **kw)
+    return _on_local_heads(
+        q, k, v, lambda ql, kl, vl: ops.flash_attention(ql, kl, vl, **kw))
 
 
 def attention(p, x, cfg, positions, *, kind, causal=True):
@@ -201,7 +303,7 @@ def update_kv_cache(cache, k_new, v_new, pos):
     slot = int(pos) % cache["k"].shape[1]
     cache["k"][:, slot] = k_new[:, 0]
     cache["v"][:, slot] = v_new[:, 0]
-    cache["pos"][:, slot] = int(pos)
+    cache["pos"][:, slot].fill_(int(pos))
     return cache
 
 

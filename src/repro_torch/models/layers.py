@@ -90,6 +90,33 @@ def cast_bmm(x, w):
     return _CastBmm.apply(x, w)
 
 
+def pointwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor, ``fn`` of each
+    rank's local values (a partial sum summed first), for the ops DTensor
+    has no sharding rule for (``log_sigmoid``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return fn(x)
+    pl = [Replicate() if p.is_partial() else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, pl,
+                              run_check=False)
+
+
+def gather_dims(t, dims):
+    """DTensor ``t`` with every shard of a dim in ``dims`` gathered and any
+    partial sum summed (those mesh dims replicated): for a reshape that
+    merges such a dim into the one before it, which no plain shard
+    expresses, or an op over such a dim (a norm, the log-softmax), for which
+    DTensor would otherwise shard the sequence; ``t`` itself otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate
+    whole = lambda p: p.is_partial() or (p.is_shard() and p.dim in dims)
+    if not isinstance(t, DTensor) or not any(whole(p) for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if whole(p) else p for p in t.placements])
+
+
 def softcap(x, cap: float):
     """gemma2-style logit soft-capping: cap * tanh(x / cap)."""
     if not cap:
@@ -118,7 +145,7 @@ def init_norm(cfg, d=None, *, device):
 
 
 def apply_norm(params, x):
-    xf = x.float()
+    xf = gather_dims(x.float(), (x.ndim - 1,))  # a DTensor's features whole
     if "bias" in params:  # layernorm, population variance as jnp.var
         mu = xf.mean(-1, keepdim=True)
         var = xf.var(-1, keepdim=True, unbiased=False)
@@ -186,10 +213,49 @@ def init_embed(gen, cfg, device):
     return p
 
 
+def _embed_sharded(table, tokens, dtype):
+    """The embedding gather of a DTensor table (the sharded step), by hand
+    on each rank's shards: a rank looks up the tokens of its batch rows that
+    fall in its vocab rows (zeros elsewhere) and the ranks' rows are summed
+    over the vocab-sharded mesh dims, in the compute dtype (one rank holds
+    each row, so the sum is exact). PyTorch's own sharding rules for the
+    gather and its backward differ between releases and fail on some."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.sharding.rules import local_range
+    mesh = table.device_mesh
+    # tokens sharded past their batch dim (a batch the data axes do not
+    # divide, relocated by the rules) are gathered: each rank then looks up
+    # whole rows
+    tokens = gather_dims(tokens, tuple(range(1, tokens.ndim)))
+    lo, hi = local_range(table.shape[0], mesh, table.placements, 0)
+    grad_pl, out_pl = [], []
+    for pt, pi in zip(table.placements, tokens.placements):
+        if pi == Shard(0):  # the batch rows: a partial sum of the table's grad
+            assert pt.is_replicate(), (table.placements, tokens.placements)
+            grad_pl.append(Partial())
+            out_pl.append(Shard(0))
+        else:
+            grad_pl.append(pt)
+            out_pl.append({Shard(0): Partial(), Shard(1): Shard(2)}.get(
+                pt, Replicate()))
+    rows = tokens.to_local().long()
+    local = table.to_local(grad_placements=grad_pl)
+    inside = (rows >= lo) & (rows < hi)
+    x = local[(rows - lo).clamp(0, hi - lo - 1)].to(dtype)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=dtype,
+                                                      device=x.device))
+    x = DTensor.from_local(x, mesh, out_pl, run_check=False)
+    return x.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in out_pl])
+
+
 def embed(params, tokens, cfg):
     # Gather, then cast: the same values as casting the table first, without
     # a compute-dtype copy of the whole table.
-    x = params["table"][tokens].to(cdtype(cfg))
+    from torch.distributed.tensor import DTensor
+    table = params["table"]
+    x = (_embed_sharded(table, tokens, cdtype(cfg))
+         if isinstance(table, DTensor) else table[tokens].to(cdtype(cfg)))
     if cfg.tie_embeddings:  # gemma-style scaled embeddings
         x = x * scalar(np.sqrt(cfg.d_model), x.dtype, x.device)
     return x

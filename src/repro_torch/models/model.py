@@ -25,8 +25,9 @@ from torch.profiler import record_function
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.models.blocks import PatternStack
-from repro_torch.models.layers import (apply_norm, cdtype, embed, init_embed,
-                                       init_norm, unembed)
+from repro_torch.models.layers import (apply_norm, cdtype, embed,
+                                       gather_dims, init_embed, init_norm,
+                                       unembed)
 
 ENCODER_FRAMES = 1500  # whisper-style fixed encoder length (core/flops.py)
 
@@ -116,7 +117,10 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
     labels = batch["labels"]
     mask = (labels >= 0).float()
     labels = labels.clamp_min(0).long()
-    lf = logits.float()
+    # a vocab-sharded DTensor's logits gathered whole over the vocab here, as
+    # the log-softmax needs them (else DTensor may shard the sequence, which
+    # the backward's row-flattening products cannot take as a plain shard)
+    lf = gather_dims(logits.float(), (logits.ndim - 1,))
     if cfg.fused_xent:
         lse = torch.logsumexp(lf, dim=-1)
         vocab = torch.arange(lf.shape[-1], device=lf.device)

@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from repro_torch.models.layers import _winit, cast_bmm, cast_matmul
+from repro_torch.models.layers import _winit, cast_bmm, cast_matmul, gather_dims
+from repro_torch.sharding.rules import current_mesh, maybe_constrain
 
 
 def init_moe(gen, cfg, device):
@@ -57,63 +58,145 @@ def capacity(cfg, seq_len: int) -> int:
     return max(e.top_k, min(c, seq_len * e.top_k))
 
 
+def _route(router, x, cfg):
+    """Router in fp32: (gates (b, s, k), experts (b, s, k), the fraction of
+    choices routed to each expert (E,), the mean router probability of each
+    expert (E,)), the means over x's rows."""
+    e = cfg.moe
+    logits = x.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)                       # (b, s, E)
+    gates, idx = torch.topk(probs, e.top_k, dim=-1)             # (b, s, k)
+    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    f = F.one_hot(idx, e.num_experts).float().sum(2).mean((0, 1))
+    return gates, idx, f, probs.mean((0, 1))
+
+
 def route(p, x, cfg):
     """Router in fp32. Returns (gates (b, s, k), experts (b, s, k), aux).
 
     ``torch.topk`` may order equal probabilities otherwise than
     ``lax.top_k``; fp32 router outputs of random inputs do not tie.
     """
-    e = cfg.moe
-    logits = x.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)                       # (b, s, E)
-    gates, idx = torch.topk(probs, e.top_k, dim=-1)             # (b, s, k)
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    gates, idx, f, pbar = _route(p["router"], x, cfg)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
-    f = F.one_hot(idx, e.num_experts).float().sum(2).mean((0, 1))
-    pbar = probs.mean((0, 1))
-    aux = e.num_experts * (f * pbar).sum()
-    return gates, idx, aux
+    return gates, idx, cfg.moe.num_experts * (f * pbar).sum()
+
+
+class _BatchRows:
+    """The batch-local dispatch of ``moe_constrained`` on a mesh: x a
+    DTensor whose batch rows are sharded over the data axes and replicated
+    over "model". The router, the slots, the scatter and the gather run on
+    each rank's own rows (``local``); ``wrap`` makes a local result a
+    DTensor again, sharded over the data axes at its batch dim, and
+    ``mean`` a local mean over the rows the average of the ranks' (summed
+    at once: the aux loss multiplies two such means)."""
+
+    def __init__(self, x):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        self.mesh = x.device_mesh
+        self.rows = [pl == Shard(0) for pl in x.placements]
+        self.shard, self.replicate, self.partial = Shard, Replicate, Partial
+
+    def local(self, t, *, replicated_param=False):
+        if replicated_param:  # each data rank's grad is a partial sum
+            t = t.redistribute(self.mesh, [self.replicate()] * len(self.rows))
+            return t.to_local(grad_placements=[
+                self.partial() if r else self.replicate() for r in self.rows])
+        return t.to_local()
+
+    def wrap(self, t, batch_dim):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(t, self.mesh, [
+            self.shard(batch_dim) if r else self.replicate() for r in self.rows],
+            run_check=False)
+
+    def mean(self, t):
+        from torch.distributed.tensor import DTensor
+        k = 1
+        for i, r in enumerate(self.rows):
+            k *= self.mesh.size(i) if r else 1
+        t = DTensor.from_local(t / k, self.mesh, [
+            self.partial() if r else self.replicate() for r in self.rows],
+            run_check=False)
+        return t.redistribute(self.mesh, [self.replicate()] * len(self.rows))
 
 
 def apply_moe(p, x, cfg):
-    """x: (b, s, d) -> (y, aux_loss)."""
-    if cfg.moe_constrained:
-        raise NotImplementedError(
-            "moe_constrained places the dispatch buffers on a device mesh "
-            "(sharding.rules), which the port has not got (ROADMAP A11)")
+    """x: (b, s, d) -> (y, aux_loss).
+
+    ``cfg.moe_constrained`` keeps the scatter entirely batch-local (E and C
+    replicated within a data shard), then reshards the dispatched buffer to
+    expert-parallel in one step, as the twin does: on a mesh
+    (``sharding.rules.set_mesh``) the router, the scatter and the gather
+    run on each rank's own rows (``_BatchRows``), the expert products on
+    DTensors; outside a mesh the constraints do nothing.
+    """
     e = cfg.moe
-    b, s, d = x.shape
     k, E = e.top_k, e.num_experts
-    C = capacity(cfg, s)
+    C = capacity(cfg, x.shape[1])
+    batch_only = lambda t: maybe_constrain(
+        t, ("pod", "data"), *([None] * (t.ndim - 1)))
+    rows = None
     with record_function("moe_dispatch"):
-        gates, idx, aux = route(p, x, cfg)
+        router = p["router"]
+        if cfg.moe_constrained:
+            x = batch_only(x)  # x_rep, the scatter's source, is x's rows
+            if current_mesh() is not None and _is_dtensor(x):
+                # a batch the data axes do not divide was relocated onto the
+                # sequence: whole rows for the row-local dispatch
+                x = gather_dims(x, (1, 2))
+                rows = _BatchRows(x)
+                x_in = x
+                x, router = rows.local(x), rows.local(router, replicated_param=True)
+        b, s, d = x.shape
+        gates, idx, f, pbar = _route(router, x, cfg)
 
         # --- position of each (token, choice) in its expert's buffer ---
         onehot = F.one_hot(idx.reshape(b, s * k), E).transpose(1, 2).contiguous()
         seen = torch.cumsum(onehot, dim=2)                      # (b, E, s*k)
         slot = ((seen * onehot).sum(1) - 1).reshape(b, s, k)    # (b, s, k)
-        rows = torch.arange(b, device=x.device)[:, None, None]
+        brow = torch.arange(b, device=x.device)[:, None, None]
         # kept pairs land at (expert, row, slot); dropped ones at the drop row
-        dest = torch.where(slot < C, (idx * b + rows) * C + slot, E * b * C)
+        dest = torch.where(slot < C, (idx * b + brow) * C + slot, E * b * C)
 
         # --- dispatch: scatter tokens into (E, b, C, d) + the drop row ---
         x_rep = x[:, :, None, :].expand(b, s, k, d).reshape(-1, d)
         buf = x.new_zeros((E * b * C + 1, d)).index_put(
             (dest.reshape(-1),), x_rep)
         buf = buf[:-1].view(E, b * C, d)                        # drop row off
+        if rows is not None:
+            buf = rows.wrap(buf, 1)
+        if cfg.moe_constrained:
+            buf = maybe_constrain(buf, None, ("pod", "data"), None)
 
+    if cfg.moe_constrained:  # expert-parallel boundary: the all-to-all
+        buf = maybe_constrain(buf, "model", ("pod", "data"), None)
     # --- expert computation: batched products over the buffer ---
     h = F.silu(cast_bmm(buf, p["wi"])) * cast_bmm(buf, p["wg"])
     out = cast_bmm(h, p["wo"])                                  # (E, b*C, d)
+    if cfg.moe_constrained:
+        out = maybe_constrain(out, "model", ("pod", "data"), None)
 
     # --- combine: gather back + weight by gates ---
     with record_function("moe_combine"):
+        if rows is not None:  # every expert's rows of this rank's batch
+            out = rows.local(out.redistribute(rows.mesh, [
+                rows.shard(1) if r else rows.replicate() for r in rows.rows]))
         out = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))])  # drop row 0
         y = out.index_select(0, dest.reshape(-1)).view(b, s, k, d)
         y = (y * gates[..., None].to(x.dtype)).sum(2)           # (b, s, d)
+    if rows is not None:
+        y, f, pbar, x = rows.wrap(y, 0), rows.mean(f), rows.mean(pbar), x_in
+    # Switch-style load-balance loss: E * sum_e f_e * P_e
+    aux = E * (f * pbar).sum()
 
     if "shared" in p:
         sp = p["shared"]
         hs = F.silu(cast_matmul(x, sp["wi"])) * cast_matmul(x, sp["wg"])
         y = y + cast_matmul(hs, sp["wo"])
     return y, aux * e.router_aux_weight
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.models.attention import _heads, _merge_heads
-from repro_torch.models.layers import _winit
+from repro_torch.models.layers import _winit, gather_dims, pointwise
 
 
 # ---------------------------------------------------------------------------
@@ -61,7 +61,7 @@ def _mlstm_qkvg(p, x, cfg):
     v = _heads(x, p["wv"])
     gates = _heads(x, p["wif"]).float() + p["bif"]
     li = gates[..., 0]
-    lf = F.logsigmoid(gates[..., 1])
+    lf = pointwise(F.logsigmoid, gates[..., 1])
     og = torch.sigmoid(_heads(x, p["wog"]).float())
     return q, k, v, li, lf, og
 
@@ -212,7 +212,7 @@ def _slstm_pre(p, x):
     """The fp32 input preactivations, bias included: the einsum
     "...d,gdnh->...gnh" of x with w, plus b. x: (..., d) -> (..., 4, nh, hd)."""
     g, d, nh, hd = p["w"].shape
-    w = p["w"].permute(1, 0, 2, 3).reshape(d, g * nh * hd)
+    w = gather_dims(p["w"], (2, 3)).permute(1, 0, 2, 3).reshape(d, g * nh * hd)
     return (x.float() @ w).unflatten(-1, (g, nh, hd)) + p["b"]
 
 
@@ -220,7 +220,7 @@ def _recurrent_weights(r):
     """The recurrent weights r (4, nh, hd, hd) as one (nh, hd, 4 hd) matrix
     a head, so a step's recurrent product is one ``bmm``."""
     g, nh, hd, _ = r.shape
-    return r.permute(1, 2, 0, 3).reshape(nh, hd, g * hd)
+    return gather_dims(r, (3,)).permute(1, 2, 0, 3).reshape(nh, hd, g * hd)
 
 
 def _slstm_step_core(pre_x, rr, state):

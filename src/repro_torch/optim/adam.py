@@ -31,11 +31,19 @@ class AdamState:
 
 
 def init(params) -> AdamState:
+    """Zero moments in fp32 and step 0. On DTensor params (the sharded
+    step) the moments are DTensors of the params' placements, each rank
+    holding its shard only, and the step a replicated DTensor."""
     zeros = lambda t: T.tree_map(
-        lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device), t)
-    device = T.leaves(params)[0].device
-    return AdamState(step=torch.zeros((), dtype=torch.int32, device=device),
-                     m=zeros(params), v=zeros(params))
+        lambda a: torch.zeros_like(a, dtype=torch.float32), t)
+    first = T.leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(first, DTensor):
+        step = DTensor.from_local(step, first.device_mesh,
+                                  [Replicate()] * first.device_mesh.ndim,
+                                  run_check=False)
+    return AdamState(step=step, m=zeros(params), v=zeros(params))
 
 
 def lr_schedule(tcfg: TrainConfig, step):

@@ -23,10 +23,11 @@ issued nor counted.
 **Transport.** The group's backend chooses it, never a failure. Gloo's
 send and receive hand the tensor's raw pointer to its TCP transport, so on
 a gloo group a CUDA tensor is staged through pinned host memory,
-explicitly, in both directions (for ``all_reduce`` too). Under NCCL (one
-rank a card) a CUDA tensor is sent as it is. NCCL with two ranks on one
-card is never set up here. ``transport(group)`` names the path a CUDA
-tensor takes.
+explicitly, in both directions; ``all_reduce_`` is ``dist.all_reduce``,
+whose CUDA tensors on gloo take the staged kernels of
+``launch/staged.py``. Under NCCL (one rank a card) a CUDA tensor is sent
+as it is. NCCL with two ranks on one card is never set up here.
+``transport(group)`` names the path a CUDA tensor takes.
 
 **Counter.** Every op adds one to its kind's count, its output's bytes to
 its kind's bytes and the host time it took to its kind's seconds on the
@@ -38,6 +39,7 @@ really runs.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -66,9 +68,25 @@ def read() -> Dict[str, Dict[str, float]]:
     return {"ops": dict(_OPS), "bytes": dict(_BYTES), "seconds": dict(_SECONDS)}
 
 
-def _count(kind: str, t: torch.Tensor):
-    _OPS[kind] += 1
-    _BYTES[kind] += t.numel() * t.element_size()
+_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def counted(kind: str, t: torch.Tensor):
+    """Count one op of ``kind`` with ``t``'s bytes and the host seconds the
+    block takes, unless an enclosing block counts it already: the staged
+    kernels of ``launch/staged.py`` count what DTensor issues, and inside
+    ``all_reduce_`` the op it already counted."""
+    _DEPTH[0] += 1
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _DEPTH[0] -= 1
+        if not _DEPTH[0]:
+            _OPS[kind] += 1
+            _BYTES[kind] += t.numel() * t.element_size()
+            _SECONDS[kind] += time.perf_counter() - t0
 
 
 def _staged(group, t: torch.Tensor) -> bool:
@@ -101,10 +119,13 @@ def ppermute_raw(x: torch.Tensor, perm: Sequence[Tuple[int, int]], group
     assert len(dests) <= 1 and len(srcs) <= 1, (perm, me)
     if n == 1:
         return x.clone()
-    _count("collective-permute", x)
-    if dests == [me] and srcs == [me]:  # the odd middle stage: its own partner
-        return x.clone()
-    t0 = time.perf_counter()
+    with counted("collective-permute", x):
+        if dests == [me] and srcs == [me]:  # the odd middle stage: its own partner
+            return x.clone()
+        return _hop(x, me, dests, srcs, group)
+
+
+def _hop(x, me, dests, srcs, group):
     staged = _staged(group, x)
     out = torch.zeros_like(x)
     recv = (torch.empty(x.shape, dtype=x.dtype, pin_memory=True) if staged
@@ -122,23 +143,17 @@ def ppermute_raw(x: torch.Tensor, perm: Sequence[Tuple[int, int]], group
             work.wait()
     if srcs and staged:
         out.copy_(recv)
-    _SECONDS["collective-permute"] += time.perf_counter() - t0
     return out
 
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
-    """In-place sum of ``t`` over ``group``; returns ``t``."""
+    """In-place sum of ``t`` over ``group``; returns ``t``. A CUDA tensor on
+    a gloo group takes the staged kernels of ``launch/staged.py``, which
+    the ranks install (``launch.ranks.run_ranks(staged_key="CUDA")``)."""
     if dist.get_world_size(group) == 1:
         return t
-    _count("all-reduce", t)
-    t0 = time.perf_counter()
-    if _staged(group, t):
-        h = _host(t)
-        dist.all_reduce(h, group=group)
-        t.copy_(h)
-    else:
+    with counted("all-reduce", t):
         dist.all_reduce(t, group=group)
-    _SECONDS["all-reduce"] += time.perf_counter() - t0
     return t
 
 

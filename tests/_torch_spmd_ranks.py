@@ -28,7 +28,7 @@ def parity_rank(rank, world, data, model, layers, np_params, tokens):
     """Both arms' loss, grads (numpy, in ``T.leaves`` order) and the
     collective counter of one loss-and-grad step on this rank."""
     cfg = small_cfg(layers)
-    mesh = make_host_mesh(data, model)
+    mesh = make_host_mesh(data, model, "cpu")
     stage, d = mesh.get_local_rank("model"), mesh.get_local_rank("data")
     params = spmd.from_jax_pipeline_params(np_params, stage, "cpu")
     toks = torch.from_numpy(tokens)

@@ -167,3 +167,52 @@ def test_spmd_bars_catch_a_one_tick_shift(monkeypatch):
           f"old bars (ok, loss, norm) {_old_bars(ranks, ref)}")
     assert not ok
     assert worst > 100 * cs.SPMD_GRAD_RTOL
+
+
+@pytest.fixture(scope="module")
+def sharded_rehearsal():
+    """Phase 15's rank function (``sharded_rank``) on four gloo CPU ranks,
+    mesh (2, 2), at ``SHARDED_SMALL`` (reduced llama-65b, fp32) in place of
+    the full width, handed ``sharded_reference``'s loss, grads and updated
+    params as phase 15 hands them; one spawn runs it faithful and with the
+    planted fault (``_torch_sharded_ranks.faithful_and_faulty_rank``).
+    Returns both runs' results and the reference's leaf keys."""
+    import sys
+
+    import _torch_sharded_ranks as SR
+    from repro_torch import serve
+    from repro_torch.launch.ranks import run_ranks
+    t = dict(cs.SHARDED_SMALL, data=2, model=2)
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
+                           reduced=True)
+    ref = cs.sharded_reference(torch, torch.device("cpu"), cfg, t)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.syspath_prepend(str(ROOT))  # a spawned rank imports chip_smoke
+        mp.setitem(sys.modules, "chip_smoke", cs)
+        both = run_ranks(SR.faithful_and_faulty_rank, 4,
+                         args=(t, "cpu", {"full": ref}), timeout_s=90,
+                         staged_key="CPU")
+    return [b[0] for b in both], [b[1] for b in both], sorted(ref[1])
+
+
+def test_sharded_phase_rehearsed_on_cpu_ranks(sharded_rehearsal):
+    """The faithful step passes phase 15's bf16 bars with room (fp32 on both
+    sides: only the order of sums differs), on one loss on every rank, with
+    its collectives counted through the staged kernels."""
+    ranks, _, keys = sharded_rehearsal
+    ok, loss_err, worst, key = cs.sharded_check(ranks, keys)
+    print(f"faithful: loss err {loss_err:.3e}, worst leaf {worst:.3e} ({key})")
+    assert ok and loss_err < 1e-5 and worst < 1e-4, (loss_err, worst, key)
+    assert len({tuple(r["losses"]) for r in ranks}) == 1
+    assert all(r["counters"][0]["ops"]["all-reduce"] > 0 for r in ranks)
+    assert sorted(tuple(r["coords"]) for r in ranks) == [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def test_sharded_bars_catch_a_rolled_head(sharded_rehearsal):
+    """A planted fault: rank 1's local ``wq`` shard rolled by one head (its
+    two heads swapped). Phase 15's bars must fail it by 10x or more."""
+    _, ranks, keys = sharded_rehearsal
+    ok, loss_err, worst, key = cs.sharded_check(ranks, keys)
+    print(f"rolled head: loss err {loss_err:.3e}, worst leaf {worst:.3e} ({key})")
+    assert not ok
+    assert worst >= 10 * cs.SHARDED_RTOL

@@ -54,7 +54,9 @@ def test_port_imports_no_jax_and_no_repro():
 
 SPMD_MODULES = ["repro_torch.pipeline.collectives", "repro_torch.pipeline.spmd",
                 "repro_torch.launch.mesh", "repro_torch.launch.ranks",
-                "repro_torch.launch.roofline", "repro_torch.launch.pipeline_dryrun"]
+                "repro_torch.launch.roofline", "repro_torch.launch.pipeline_dryrun",
+                "repro_torch.sharding.rules", "repro_torch.launch.specs",
+                "repro_torch.launch.dryrun", "repro_torch.launch.staged"]
 
 
 @pytest.mark.parametrize("module", SPMD_MODULES)
@@ -365,3 +367,12 @@ def test_config_copies_equal_field_by_field(name):
     assert dataclasses.asdict(t.reduced()) == dataclasses.asdict(j.reduced())
     assert t.param_count() == j.param_count()
     assert t.layer_kinds() == j.layer_kinds()
+
+
+def test_every_module_has_a_twin_but_compat():
+    """Each module of the JAX package has its twin at the same path in the
+    port, but ``compat.py`` (shims over JAX versions, nothing to port)."""
+    jax_side = ROOT / "src" / "repro"
+    missing = sorted(str(f.relative_to(jax_side)) for f in jax_side.rglob("*.py")
+                     if not (ROOT / "src" / "repro_torch" / f.relative_to(jax_side)).exists())
+    assert missing == ["compat.py"], missing

@@ -123,11 +123,34 @@ def test_apply_moe_values_and_grads(arch, capacity_factor):
         _close(g, want[path].numpy(), rtol=GRAD_RTOL)
 
 
-def test_moe_constrained_raises():
-    _, tc = _cfgs("granite-moe-1b-a400m", moe_constrained=True)
-    _, tp = _params(_cfgs("granite-moe-1b-a400m")[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        TMoE.apply_moe(tp, torch.zeros((1, 4, tc.d_model)), tc)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_moe_constrained_matches(arch):
+    """``moe_constrained`` outside a mesh: the reference's constraints do
+    nothing there, and the port's neither (``sharding.rules.maybe_constrain``),
+    so y, aux and the grads equal the reference's with the flag."""
+    jc, tc = _cfgs(arch, moe_constrained=True)
+    jp, tp = _params(jc)
+    x, cot = _x(2, 32, jc.d_model, seed=1), _x(2, 32, jc.d_model, seed=2)
+
+    def jloss(p, xx):
+        y, aux = JMoE.apply_moe(p, xx, jc)
+        return jnp.sum(y * cot) + aux, (y, aux)
+
+    (_, (jy, jaux)), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    paths, leaves = zip(*T.leaves_with_paths(tp))
+    req = [t.clone().requires_grad_(True) for t in leaves]
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty, taux = TMoE.apply_moe(T.unflatten(paths, req), tx, tc)
+    grads = torch.autograd.grad((ty * torch.from_numpy(cot)).sum() + taux,
+                                req + [tx])
+    _close(ty, jy)
+    _close(taux, jaux)
+    _close(grads[-1], jgx, rtol=GRAD_RTOL)
+    want = dict(T.leaves_with_paths(bridge.to_torch(
+        jax.tree.map(np.asarray, jgp), device="cpu")))
+    for path, g in zip(paths, grads[:-1]):
+        _close(g, want[path].numpy(), rtol=GRAD_RTOL)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
