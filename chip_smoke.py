@@ -89,7 +89,8 @@ Phases, each fatal on failure:
      b 4 x 432, forward, internvl2-1b's GQA group of 7 at b 4 x 2048 and
      its pipelined microbatch at b 1 x 1792, forward and backward, and
      llama-65b's local heads in phase 15's sharded step, b 4 x 16 heads on
-     mesh (1, 4) and b 2 x 32 on (2, 2), forward and backward), against
+     mesh (1, 4) and b 2 x 32 on (2, 2), and granite's, b 4 x 4/2 heads on
+     (1, 4), forward and backward), against
      their plain versions, twice bit-equal (a bf16 grad element past 2.5e-2
      one ulp off only at a rounding tie that the float64 gradient
      witnesses, on the rows so marked), HD256's first shape and
@@ -134,7 +135,9 @@ Phases, each fatal on failure:
  15. the sharded train step (``make_train_step(cfg, tcfg, mesh)``, DTensors
      placed by ``sharding/rules.py``): llama-65b at full width as four ranks
      of the one card on meshes (data 1, model 4) at 2 layers and (2, 2) at 1
-     layer (``SHARDED``), B 4 x 2048, bf16 compute, fp32 params and moments,
+     layer, and granite-moe-1b-a400m on (1, 4) at ``GRANITE_SHARDED_LAYERS``
+     (its odd tied vocab, the experts over "model", the dispatch on each
+     rank's rows; ``SHARDED``), B 4 x 2048, bf16 compute, fp32 params and moments,
      flash on each rank's local heads, 3 steps a mesh, the collectives of CUDA
      tensors staged through pinned host memory into gloo
      (``launch/staged.py``): step ms (the slowest rank's, median), tokens/s,
@@ -142,8 +145,11 @@ Phases, each fatal on failure:
      relocations; checks the grads (``make_loss_grad`` on the mesh) and the
      first step's loss and updated params on every rank's slices against the single-device step on the same params
      and batch (``SHARDED_LOSS_RTOL``, ``SHARDED_RTOL``), the same step small
-     in fp32 at the executor's tolerances, one loss on every rank and the
-     flash launches per rank (layers x steps).
+     in fp32 at the executor's tolerances (granite's at full width and 2
+     layers, ``SHARDED_FP32_FULL``), the tokens whose expert choices differ
+     from the single-device step's (printed; no bar depends on them), one
+     loss on every rank, the flash launches per rank (layers x steps) and
+     the row's seconds (reference and ranks).
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -270,9 +276,10 @@ HD256 = [(1, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b local layer"),
 # element past 2.5e-2 differ by one bf16 ulp only where the gradient's
 # float64 value witnesses a rounding tie (``grad_agree_ulp``): dK and dV sum
 # the group's heads x 2048 rows and reach |want| >= 4, where one ulp is
-# 3.125e-2 (ROADMAP queue C). The last two rows are phase 15's: llama-65b's
+# 3.125e-2 (ROADMAP queue C). The last three rows are phase 15's: llama-65b's
 # sharded step runs the kernels on each rank's local heads and batch rows,
-# 64 heads over "model" 4 at b 4, over "model" 2 at b 4 / data 2.
+# 64 heads over "model" 4 at b 4, over "model" 2 at b 4 / data 2; the last,
+# granite's 16/8 heads over "model" 4 at b 4.
 # FAMILY_TIMED's shapes are timed beside SDPA and the bound.
 FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serve", True, "ulp"),
                (4, 2048, 10, 1, 256, 2048, 0.0, "recurrentgemma-2b serve prefill", False, "ulp"),
@@ -281,7 +288,8 @@ FAMILY_ATTN = [(4, 2048, 16, 8, 64, 0, 0.0, "granite-moe-1b-a400m train and serv
                (4, 2048, 14, 2, 64, 0, 0.0, "internvl2-1b", True, "ulp"),
                (1, 1792, 14, 2, 64, 0, 0.0, "internvl2-1b pipelined microbatch", True, "ulp"),
                (4, 2048, 16, 16, 128, 0, 0.0, "llama-65b sharded (1, 4) local heads", True, "ulp"),
-               (2, 2048, 32, 32, 128, 0, 0.0, "llama-65b sharded (2, 2) local heads", True, "ulp")]
+               (2, 2048, 32, 32, 128, 0, 0.0, "llama-65b sharded (2, 2) local heads", True, "ulp"),
+               (4, 2048, 4, 2, 64, 0, 0.0, "granite-moe-1b-a400m sharded (1, 4) local heads", True, "ulp")]
 FAMILY_TIMED = ("whisper-small decoder", "internvl2-1b")
 # Each family's paths: train (launch.train, Adam), the pipelined step
 # (PipelineExecutor, 1f1b and bpipe, remat "flash", no Adam) and serve.
@@ -360,11 +368,24 @@ SPMD_TRANSPORT = ("gloo, 4 ranks share one card, hops staged through host "
 # 10.7 GB at (2, 2) x 1 layer, beside its activations and the fp32 logits of
 # its rows; the parent holds the reference's grads and updated params (17.2 /
 # 10.7 GB).
-SHARDED = dict(arch="llama-65b", batch=4, seq=2048, steps=3, reduced=False,
-               meshes=((1, 4, 2), (2, 2, 1)))
-# the same step small in fp32 (reduced llama-65b, TF32 off) on each mesh
+# granite-moe-1b-a400m (d 1024, 16/8 heads of 64, 32 experts top 8, tied
+# vocab 49155, which 4 does not divide: the table is relocated onto d and the
+# logits are partial sums) at full width on (1, 4), the experts over "model",
+# flash on 4/2 local heads a rank, depth cut to GRANITE_SHARDED_LAYERS so that
+# the row takes at most 90 s (the staged collectives set its time, the tied
+# logits' most of all; the row prints its seconds: PERF.md §4 and §6).
+GRANITE_SHARDED_LAYERS = 3
+SHARDED = dict(batch=4, seq=2048, steps=3, reduced=False,
+               rows=(("llama-65b", 1, 4, 2), ("llama-65b", 2, 2, 1),
+                     ("granite-moe-1b-a400m", 1, 4, GRANITE_SHARDED_LAYERS)))
+# the same step small in fp32 (reduced, TF32 off) on each row's mesh; for
+# granite at full width and 2 layers in fp32 (one row of 2048: its tied
+# logits' collectives set the row's time), a check of its own beside the
+# bf16 bars, which no flip of a near-tied expert choice relaxes
 SHARDED_SMALL = dict(arch="llama-65b", batch=4, seq=32, layers=2, steps=1,
                      reduced=True)
+SHARDED_FP32_FULL = dict(arch="granite-moe-1b-a400m", batch=1, seq=2048,
+                         layers=2, steps=1, reduced=False, fp32=True)
 # bars against the single-device step on the same params and batch: bf16 (the
 # loss relatively; each leaf's max |got - want| / max |want| over the rank's
 # slice: row-parallel bf16 partial sums are added in another order), and
@@ -2560,17 +2581,54 @@ def sharded_flash_launches(layers, steps):
             "flash_attention_dkv": n}
 
 
-def sharded_reference(torch, dev, cfg, t):
+def sharded_cfg(t):
+    """The config of a phase 15 row ``t``: its arch and depth, flash, at full
+    width or reduced, fp32 where ``t["fp32"]``."""
+    from repro_torch import serve
+    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
+                           reduced=t["reduced"])
+    return dataclasses.replace(cfg, dtype="float32") if t.get("fp32") else cfg
+
+
+@contextlib.contextmanager
+def expert_choices(torch, into):
+    """Inside the block each MoE layer's router appends its tokens' expert
+    choices (sorted, int16, a numpy array: a spawned rank hands it back by
+    value) to ``into``, in call order."""
+    from repro_torch.models import moe
+    route = moe._route
+
+    def spy(router, x, cfg):
+        out = route(router, x, cfg)
+        into.append(out[1].sort(-1).values.to(torch.int16).cpu().numpy())
+        return out
+
+    moe._route = spy
+    try:
+        yield into
+    finally:
+        moe._route = route
+
+
+def routing_flips(got, want):
+    """Tokens whose set of expert choices differs between two runs, summed
+    over the MoE layers (each run's choices from ``expert_choices``)."""
+    return int(sum((g != w).any(-1).sum() for g, w in zip(got, want)))
+
+
+def sharded_reference(torch, dev, cfg, t, routes=None):
     """The single-device train step (``make_train_step(cfg, tcfg)``, no mesh)
     on the params every rank draws (seed 0) and the batch of step 0: its
-    loss, and its grads and updated params keyed by path."""
+    loss, and its grads and updated params keyed by path. ``routes``, a
+    list, takes the grads' forward's expert choices."""
     from repro_torch import tree as T
     from repro_torch.models import model as M
     from repro_torch.optim import adam
     from repro_torch.train.steps import make_loss_grad, make_train_step
     params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
     batch = sharded_batch(torch, dev, cfg, t)
-    _, grads = make_loss_grad(cfg, sharded_tcfg(t))(params, batch)
+    with expert_choices(torch, [] if routes is None else routes):
+        _, grads = make_loss_grad(cfg, sharded_tcfg(t))(params, batch)
     params, opt, metrics = make_train_step(cfg, sharded_tcfg(t))(
         params, adam.init(params), batch)
     del opt, batch
@@ -2615,12 +2673,9 @@ def sharded_rank(rank, world, t, device, refs, fault=False):
     import torch
     import torch.distributed as dist
 
-    from repro_torch import serve
-    from repro_torch import tree as T
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch import staged
-    from repro_torch.models import attention as A
     from repro_torch.models import model as M
     from repro_torch.optim import adam
     from repro_torch.pipeline import collectives as C
@@ -2656,13 +2711,14 @@ def sharded_rank(rank, world, t, device, refs, fault=False):
         return dparams, rules.distribute(batch, mesh, bs)
 
     if "small" in refs:
-        small = dict(SHARDED_SMALL, data=t["data"], model=t["model"])
-        cfg = serve.config_for(small["arch"], layers=small["layers"],
-                               attn_impl="flash", reduced=True)
+        small = dict(t.get("small", SHARDED_SMALL), data=t["data"], model=t["model"])
+        cfg = sharded_cfg(small)
         dparams, dbatch = draw(cfg, small, serial=False)
         loss, grads, params = refs["small"]
-        _, g = make_loss_grad(cfg, sharded_tcfg(small), mesh)(dparams, dbatch)
-        out["small"] = {"grads": sharded_errs(torch, g, grads, mesh)}
+        with expert_choices(torch, []) as routes:
+            _, g = make_loss_grad(cfg, sharded_tcfg(small), mesh)(dparams, dbatch)
+        out["small"] = {"grads": sharded_errs(torch, g, grads, mesh),
+                        "routes": routes if rank == 0 else None}
         step, _ = make_train_step(cfg, sharded_tcfg(small), mesh)
         new, _, m = step(dparams, adam.init(dparams), dbatch)
         out["small"].update(loss_err=abs(float(m["total"].full_tensor()) - loss),
@@ -2671,10 +2727,9 @@ def sharded_rank(rank, world, t, device, refs, fault=False):
         params.clear()
         del dparams, dbatch, new, m, g, step
 
-    cfg = serve.config_for(t["arch"], layers=t["layers"], attn_impl="flash",
-                           reduced=t["reduced"])
+    cfg = sharded_cfg(t)
     rules.RELOCATIONS.clear()
-    A.FLASH_REDISTRIBUTIONS.clear()
+    rules.REDISTRIBUTIONS.clear()
     dparams, dbatch = draw(cfg, t, serial=True)
     if fault and rank == 1:
         wq = dparams["blocks"]["pos0"]["mixer"]["wq"].to_local()
@@ -2683,8 +2738,10 @@ def sharded_rank(rank, world, t, device, refs, fault=False):
     loss, grads, params = refs["full"]
     # the grads of step 0's params, held to the reference's and let go of
     # before the steps (the parent's memory too, now, not at exit)
-    _, g = make_loss_grad(cfg, sharded_tcfg(t), mesh)(dparams, dbatch)
+    with expert_choices(torch, []) as routes:
+        _, g = make_loss_grad(cfg, sharded_tcfg(t), mesh)(dparams, dbatch)
     out["grads"] = sharded_errs(torch, g, grads, mesh)
+    out["routes"] = routes if rank == 0 else None
     grads.clear()
     del g
     step, _ = make_train_step(cfg, sharded_tcfg(t), mesh)
@@ -2712,7 +2769,7 @@ def sharded_rank(rank, world, t, device, refs, fault=False):
                peak=torch.cuda.max_memory_allocated() if cuda else None,
                relocations=sorted({(tag, d, -1 if d2 is None else d2)
                                    for tag, _, d, d2, _ in rules.RELOCATIONS}),
-               redistributions=[[str(x) for x in e] for e in A.FLASH_REDISTRIBUTIONS])
+               moves=[[str(x) for x in e] for e in rules.REDISTRIBUTIONS])
     return out
 
 
@@ -2742,20 +2799,22 @@ def sharded_small_check(ranks):
 
 def sharded_phase(torch, dev, smi):
     """Phase 15: the sharded train step on four ranks of the one card, one
-    spawn a mesh. Returns each mesh's flash launch counts summed over the
-    ranks."""
+    spawn a row of ``SHARDED``. Returns each row's flash launch counts
+    summed over the ranks."""
     import statistics
 
-    from repro_torch import serve
     from repro_torch.launch.ranks import run_ranks
 
-    counts_by_mesh, ok = {}, True
-    for data, model, layers in SHARDED["meshes"]:
-        t = dict(SHARDED, data=data, model=model, layers=layers)
+    counts_by_row, ok = {}, True
+    for arch, data, model, layers in SHARDED["rows"]:
+        t = dict(SHARDED, arch=arch, data=data, model=model, layers=layers)
+        small_t = SHARDED_FP32_FULL if arch == SHARDED_FP32_FULL["arch"] else SHARDED_SMALL
+        t["small"] = small_t
         world = data * model
-        cfg = serve.config_for(t["arch"], layers=layers, attn_impl="flash")
-        t0 = time.perf_counter()
-        loss, grads, params = sharded_reference(torch, dev, cfg, t)
+        cfg = sharded_cfg(t)
+        t0 = t_row = time.perf_counter()
+        routes = []
+        loss, grads, params = sharded_reference(torch, dev, cfg, t, routes)
         keys = sorted(grads)
         # through the host and back, so the kept tensors lie in blocks of
         # their own and none holds the reference's freed activations reserved
@@ -2765,12 +2824,12 @@ def sharded_phase(torch, dev, smi):
         torch.cuda.empty_cache()
         grads = {k: g.to(dev) for k, g in grads.items()}
         params = {k: x.to(dev) for k, x in params.items()}
-        scfg = serve.config_for(SHARDED_SMALL["arch"], layers=SHARDED_SMALL["layers"],
-                                attn_impl="flash", reduced=True)
-        small = sharded_reference(torch, dev, scfg, SHARDED_SMALL)
-        print(f"[sharded] mesh ({data}, {model}): the single-device reference "
-              f"({layers} layers) in {time.perf_counter() - t0:.1f} s, the parent "
-              f"holding its grads and updated params: memory_allocated "
+        small_routes = []
+        small = sharded_reference(torch, dev, sharded_cfg(small_t), small_t,
+                                  small_routes)
+        print(f"[sharded] {arch} mesh ({data}, {model}): the single-device "
+              f"reference ({layers} layers) in {time.perf_counter() - t0:.1f} s, the "
+              f"parent holding its grads and updated params: memory_allocated "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
               f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
         t0 = time.perf_counter()
@@ -2782,6 +2841,7 @@ def sharded_phase(torch, dev, smi):
         finally:
             os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
         wall = time.perf_counter() - t0
+        row_s = time.perf_counter() - t_row
         del grads, params, small
         torch.cuda.empty_cache()
         slowest = [max(r["times"][i] for r in ranks) for i in range(t["steps"])]
@@ -2796,11 +2856,15 @@ def sharded_phase(torch, dev, smi):
                    for r in ranks]
         ok_ref, loss_err, worst, key = sharded_check(ranks, keys)
         ok_small, small_loss, small_worst = sharded_small_check(ranks)
+        flips = routing_flips(ranks[0]["routes"], routes)
+        small_flips = routing_flips(ranks[0]["small"]["routes"], small_routes)
+        routed = sum(int(r[..., 0].size) for r in routes)
         ok = ok and ok_counts and ok_loss and ok_ref and ok_small
-        counts_by_mesh[f"({data}, {model})"] = {
+        counts_by_row[f"{arch} ({data}, {model})"] = {
             k: sum(r["counts"][k] for r in ranks) for k in want_counts}
-        print(f"[sharded] {cfg.name} {layers} layers d{cfg.d_model} {cfg.num_heads}x"
-              f"{cfg.head_dim} ff{cfg.d_ff} {cfg.dtype} attn={cfg.attn_impl} mesh "
+        print(f"[sharded] {cfg.name} {layers} layers d{cfg.d_model} {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}x{cfg.head_dim} ff{cfg.d_ff} vocab {cfg.vocab_size} "
+              f"{cfg.dtype} attn={cfg.attn_impl} mesh "
               f"(data {data}, model {model}): B {t['batch']} x {t['seq']}; steps "
               f"(slowest rank) {' / '.join(f'{1e3 * x:.2f}' for x in slowest)} ms, "
               f"median {1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s; losses "
@@ -2809,24 +2873,32 @@ def sharded_phase(torch, dev, smi):
               f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB; flash launches per "
               f"rank {[r['counts'] for r in ranks]}; collectives a step (kind, ops, "
               f"bytes) {coll}; ms in collectives per rank, last step {in_coll}; "
-              f"relocations {ranks[0]['relocations']}; q/k/v redistributed before "
-              f"flash {ranks[0]['redistributions']}; transport {ranks[0]['transport']} "
+              f"relocations {ranks[0]['relocations']}; the model's local-tensor moves "
+              f"(q/k/v before flash among them) {ranks[0]['moves']}; transport {ranks[0]['transport']} "
               f"(4 ranks share one card: the times say nothing of NVLink); {world} "
-              f"ranks in {wall:.1f} s; card {smi}")
-        print(f"[check] sharded ({data}, {model}): loss vs the single-device step "
-              f"relative err {loss_err:.3e} (tol {SHARDED_LOSS_RTOL}); grads and "
+              f"ranks in {wall:.1f} s; the row (reference and ranks) in {row_s:.1f} s; "
+              f"card {smi}")
+        print(f"[check] sharded {arch} ({data}, {model}): loss vs the single-device "
+              f"step relative err {loss_err:.3e} (tol {SHARDED_LOSS_RTOL}); grads and "
               f"updated params, each rank's slice, max |got - want| / max |want| "
-              f"{worst:.3e} ({key}; tol {SHARDED_RTOL}) {'ok' if ok_ref else 'FAIL'}; "
-              f"fp32 small (reduced llama-65b, {SHARDED_SMALL['layers']} layers, B "
-              f"{SHARDED_SMALL['batch']} x {SHARDED_SMALL['seq']}) loss err "
+              f"{worst:.3e} ({key}; tol {SHARDED_RTOL}) {'ok' if ok_ref else 'FAIL'}"
+              + (f"; tokens whose expert choices differ from the single-device "
+                 f"step's, over {len(routes)} MoE layers: {flips} of {routed}"
+                 if routes else "")
+              + f"; fp32 {small_t['arch']} ({small_t['layers']} layers, "
+              f"{'reduced' if small_t['reduced'] else 'full width'}, B "
+              f"{small_t['batch']} x {small_t['seq']}) loss err "
               f"{small_loss:.3e} (tol {SHARDED_FP32_LOSS}), worst leaf {small_worst:.3e}, "
               f"every element within {SHARDED_FP32_ATOL} + {SHARDED_FP32_RTOL}|want| "
-              f"{'ok' if ok_small else 'FAIL'}; flash launches per rank {want_counts} "
-              f"= layers x steps {ok_counts}; one loss on every rank {ok_loss}")
+              f"{'ok' if ok_small else 'FAIL'}"
+              + (f", expert choices differing {small_flips}" if small_routes else "")
+              + f"; flash launches per rank "
+              f"{want_counts} = layers x steps {ok_counts}; one loss on every rank "
+              f"{ok_loss}")
     if not ok:
         fail("the sharded train step's launches, losses or bars against the "
              "single-device step are wrong")
-    return counts_by_mesh
+    return counts_by_row
 
 
 def n_attn(fam, path):
@@ -3184,7 +3256,7 @@ def main():
                 **{f"spmd {arm}": c[name] for arm, c in spmd_counts.items()},
                 **{f"sharded {mesh}": c[name] for mesh, c in sharded_counts.items()}}
 
-    def launches(name):  # this slice's main path: phase 15, both meshes, all ranks
+    def launches(name):  # this slice's main path: phase 15, every row, all ranks
         return sum(c[name] for c in sharded_counts.values())
 
     def at_family_shapes(name):

@@ -37,11 +37,14 @@ Per combo this writes experiments/dryrun_torch/<arch>__<shape>__<mesh>
     of the step by kind, each its output's bytes, counted where DTensor
     issues them (``_c10d_functional`` ops); the twin counts the compiled
     HLO's ops, a ``lax.scan`` body once;
-  * ``relocations`` (``rules.RELOCATIONS``) and ``flash_redistributions``
-    (``models/attention.FLASH_REDISTRIBUTIONS``: q/k/v moved before the
-    kernel, e.g. off a head_dim shard).
-A decode step writes at ``pos = seq_len - 1`` (the port's decode takes the
-position as an int; the twin traces it).
+  * ``memory.unread_argument_bytes``: the arguments the measured run
+    never read (``LocalCounter``), which the twin's ``jax.jit`` prunes;
+  * ``relocations`` (``rules.RELOCATIONS``) and ``redistributions``
+    (``rules.REDISTRIBUTIONS``: the moves of the model's local-tensor paths,
+    e.g. q/k/v off a head_dim shard before attention, and of gradient
+    accumulation's microbatches), each [tag, before, after].
+A decode step writes at ``pos = seq_len - 1``, a 0-dim int32 argument as
+the twin traces it.
 """
 import argparse
 import dataclasses
@@ -62,7 +65,6 @@ from repro_torch.core import flops as flops_mod
 from repro_torch.launch import roofline as rl
 from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import attention
 from repro_torch.models import model as M
 from repro_torch.optim import adam
 from repro_torch.sharding import rules
@@ -77,6 +79,12 @@ OUTPUT_BYTES_WHY = ("the step's outputs are not set apart from its "
                     "temporaries under FakeTensorMode; MemTracker's peak "
                     "holds both")
 ALIAS_BYTES_WHY = "no donation in the port: params and moments are updated in place"
+UNREAD_WHY = ("bytes of the arguments that the measured run never read (a "
+              "prefill overwrites its input state, a decode never runs an "
+              "encoder-decoder's encoder, an xLSTM never reads the "
+              "position); the twin's jax.jit prunes such arguments "
+              "(keep_unused=False), so its argument_bytes are these "
+              "argument_bytes less them")
 
 # --- the twin's variants: (cfg overrides, tcfg overrides, cache strategy
 # [, moe axis]); copied as they are
@@ -147,15 +155,34 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ops that take a tensor for its shape, dtype and device only (and every
+# ``prim`` op, such as ``prim.device``)
+_METADATA_OPS = {"empty_like", "zeros_like", "ones_like", "full_like",
+                 "new_empty", "new_empty_strided", "new_zeros", "new_ones",
+                 "new_full"}
+# in-place ops that overwrite their first argument without reading it
+_OVERWRITE_OPS = {"copy_", "fill_", "zero_"}
+
+
+def _storage(t):
+    return t.untyped_storage()._cdata
+
+
 class LocalCounter(TorchDispatchMode):
     """Counts what one rank runs on its local tensors: FLOPs (by
     ``torch.utils.flop_counter``'s formulas), the input and output bytes of
     every op that is not a view, and the collectives by kind (ops, output
     bytes). A DTensor op is handed on (``NotImplemented``) to DTensor, whose
     ops on the local tensors come back here: a DTensor op itself is never
-    counted, so no logical (unpartitioned) work is."""
+    counted, so no logical (unpartitioned) work is.
 
-    def __init__(self):
+    It also notes which of the ``arguments`` (the rank's local argument
+    tensors) an op reads, through any view of them: every input of an op
+    that is not a view, but the tensor an in-place copy or fill overwrites
+    and the one an op takes only for its metadata (``unread``: the bytes of
+    those never read)."""
+
+    def __init__(self, arguments=()):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self.registry = flop_registry
@@ -163,12 +190,35 @@ class LocalCounter(TorchDispatchMode):
         self.bytes = 0
         self.coll_ops = {k: 0 for k in rl.COLLECTIVES}
         self.coll_bytes = {k: 0.0 for k in rl.COLLECTIVES}
+        self._watch = {}
+        for t in arguments:
+            self._watch.setdefault(_storage(t), []).append(t)
+        self._read = set()
+
+    @property
+    def unread(self) -> int:
+        """Bytes of the arguments that no op read."""
+        return _nbytes([t for k, ts in self._watch.items()
+                        if k not in self._read for t in ts])
+
+    def _note_reads(self, func, args, kwargs):
+        name = func._overloadpacket.__name__
+        if func.is_view or name in _METADATA_OPS or func.namespace == "prim":
+            return
+        ins = _tensors(list(args)) + _tensors(list(kwargs.values()))
+        if name in _OVERWRITE_OPS:
+            ins = ins[1:]
+        for t in ins:
+            k = _storage(t)
+            if k in self._watch:
+                self._read.add(k)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
+        self._note_reads(func, args, kwargs)
         out = func(*args, **kwargs)
         packet = func._overloadpacket
         kind = (_COLLECTIVE_OPS.get(packet.__name__)
@@ -197,7 +247,7 @@ def measure(fn, args, arguments):
     MemTracker counts as already there."""
     from torch.distributed._tools.mem_tracker import MemTracker
     fn(*args)
-    counter, tracker = LocalCounter(), MemTracker()
+    counter, tracker = LocalCounter(arguments), MemTracker()
     tracker.track_external(*arguments)
     t0 = time.time()
     with tracker, counter:
@@ -209,7 +259,10 @@ def measure(fn, args, arguments):
 
 
 def _distribute(tree, mesh, placements):
-    """``rules.distribute`` over a tree that may hold an ``AdamState``."""
+    """``rules.distribute`` over a tree that may hold an ``AdamState``; a
+    tensor without placements as it is."""
+    if placements is None:
+        return tree
     if isinstance(tree, adam.AdamState):
         return adam.AdamState(
             step=rules.distribute({"s": tree.step}, mesh,
@@ -232,6 +285,52 @@ def _sharded_grads(params, batch, cfg, remat):
     grads = T.tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
                        grads, params)
     return loss, metrics, grads
+
+
+def microbatches(batch, mesh, num_micro: int):
+    """The ``num_micro`` microbatches of a batch of DTensors, each placed as
+    ``rules.batch_shardings`` places a batch of its shape. Where that keeps
+    the batch rows sharded (a microbatch the data axes divide), microbatch
+    i is rows ``i::num_micro`` of each rank's local rows, a plain shard
+    that moves nothing. Where it does not (8 rows on 16 data ranks), the
+    rules relocate the data axes onto a later dim: the whole batch is
+    redistributed to those placements once (recorded in
+    ``rules.REDISTRIBUTIONS``), and microbatch i is rows ``i::num_micro``
+    of its whole rows. The twin takes the contiguous rows of its
+    ``reshape((num_micro, -1) + shape[1:])``, whose microbatch is no plain
+    shard; both split the batch into equal-size microbatches, and the
+    step's loss is the mean of their mean losses, so where each row's
+    tokens are all counted (no label -1) and the loss has no MoE aux (a
+    product of two means over a microbatch's tokens), any such split gives
+    the loss and grads of the single-shot step."""
+    from torch.distributed.tensor import DTensor
+    micro = {k: torch.empty((v.shape[0] // num_micro, *v.shape[1:]),
+                            device="meta") for k, v in batch.items()}
+    want = rules.batch_shardings(micro, mesh)
+    out = [dict() for _ in range(num_micro)]
+    for k, v in batch.items():
+        if v.shape[0] % num_micro:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split into {num_micro} microbatches")
+        local = rules.redistribute(v, want[k], "accum_batch").to_local()
+        for i in range(num_micro):
+            out[i][k] = DTensor.from_local(
+                local[i::num_micro], mesh, want[k], run_check=False,
+                shape=micro[k].shape, stride=micro[k].stride())
+    return out
+
+
+def accumulated_grads(params, batch, cfg, remat, num_micro: int):
+    """(loss, grads) of the twin's gradient accumulation over
+    ``microbatches(batch, ...)``: the grads summed over the microbatches
+    and divided by their number, the loss their mean."""
+    grads, loss = None, 0.0
+    mesh = next(iter(batch.values())).device_mesh
+    for bi in microbatches(batch, mesh, num_micro):
+        l, _, g = _sharded_grads(params, bi, cfg, remat)
+        grads = g if grads is None else T.tree_map(torch.add, grads, g)
+        loss = loss + l
+    return loss / num_micro, T.tree_map(lambda g: g / num_micro, grads)
 
 
 def build_step(cfg, shape, mesh, tcfg: TrainConfig, cache_strategy="heads",
@@ -257,16 +356,8 @@ def build_step(cfg, shape, mesh, tcfg: TrainConfig, cache_strategy="heads",
             else:
                 # the paper's b-axis: microbatched gradient accumulation;
                 # live activations scale with micro_batch, not B
-                grads, loss = None, 0.0
-                for i in range(num_micro):
-                    bi = {k: v.unflatten(0, (num_micro, -1))[i]
-                          for k, v in b.items()}
-                    l, _, g = _sharded_grads(params, bi, cfg, tcfg.remat)
-                    grads = g if grads is None else T.tree_map(
-                        torch.add, grads, g)
-                    loss = loss + l
-                grads = T.tree_map(lambda g: g / num_micro, grads)
-                loss = loss / num_micro
+                loss, grads = accumulated_grads(params, b, cfg, tcfg.remat,
+                                                num_micro)
                 metrics = {"loss": loss, "aux": 0.0}
             params, opt_state, om = adam.update(params, grads, opt_state, tcfg)
             return params, opt_state, dict(metrics, **om)
@@ -292,15 +383,19 @@ def build_step(cfg, shape, mesh, tcfg: TrainConfig, cache_strategy="heads",
     ba = rules.batch_axes(mesh)
     tok_sh = rules.to_placements(
         rules.legalize(rules.P(ba), dec_in["token"].shape, mesh), mesh)
-    args = [pspec, state, dec_in["token"]]
-    shards = [p_sh, s_sh, tok_sh]
-    pos = shape.seq_len - 1
+    # the position a 0-dim int32 tensor on every rank, as the twin traces it
+    # (replicated); the model reads it with int(), which a fake tensor made
+    # from a value answers
+    with sp.fake_mode():
+        pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
+    args = [pspec, state, dec_in["token"], pos]
+    shards = [p_sh, s_sh, tok_sh, None]
     if cfg.is_encdec:
         args.append(dec_in["enc_states"])
         shards.append(rules.to_placements(rules.legalize(
             rules.P(ba, None, None), dec_in["enc_states"].shape, mesh), mesh))
 
-    def step(params, state, token, enc_states=None):
+    def step(params, state, token, pos, enc_states=None):
         logits, state = M.decode_step(params, token, pos, state, cfg,
                                       enc_states=enc_states)
         # the vocab gathered first: DTensor's argmax over a sharded dim
@@ -316,7 +411,7 @@ def run_combo(cfg, shape, mesh, tcfg, cache_strategy="heads",
     """One step of ``cfg`` at ``shape`` on ``mesh``, measured on rank 0."""
     from torch.distributed.tensor.experimental import implicit_replication
     rules.RELOCATIONS.clear()
-    attention.FLASH_REDISTRIBUTIONS.clear()
+    rules.REDISTRIBUTIONS.clear()
     fn, args, placements = build_step(cfg, shape, mesh, tcfg, cache_strategy,
                                       moe_axis)
     relocs = sorted({(t, d, -1 if d2 is None else d2)
@@ -338,6 +433,8 @@ def run_combo(cfg, shape, mesh, tcfg, cache_strategy="heads",
         "t_run_s": round(seconds, 2),
         "memory": {
             "argument_bytes": arg_bytes,
+            "unread_argument_bytes": counter.unread,
+            "unread_argument_bytes_why": UNREAD_WHY,
             "temp_bytes": max(peak - arg_bytes, 0),
             "temp_bytes_source": TEMP_BYTES_SOURCE,
             "output_bytes": None, "output_bytes_why": OUTPUT_BYTES_WHY,
@@ -348,9 +445,9 @@ def run_combo(cfg, shape, mesh, tcfg, cache_strategy="heads",
         "collective_bytes_raw": counter.coll_bytes,
         "collective_ops": counter.coll_ops,
         "relocations": [list(r) for r in relocs],
-        "flash_redistributions": [
-            [list(map(str, q)), list(map(str, k)), list(map(str, w))]
-            for q, k, w in attention.FLASH_REDISTRIBUTIONS],
+        "redistributions": [
+            [tag, list(map(str, a)), list(map(str, b))]
+            for tag, a, b in rules.REDISTRIBUTIONS],
     }
 
 

@@ -145,22 +145,20 @@ def _sdpa_plain(q, k, v, cfg, q_pos, k_pos, *, causal, window):
     return out.reshape(b, sq, nq, hd)
 
 
-# Redistributions of q/k/v that ``_flash`` and ``_sdpa`` ran before the
-# attention on a mesh, each (q's placements, k's placements, the placements
-# the attention took); the dry run clears and records them, as it does the
-# rules' relocations.
-FLASH_REDISTRIBUTIONS: list = []
-
-
-def _flash_placements(q, k):
+def _flash_placements(q, k, heads=True):
     """The placements q, k and v enter the kernel with, one per mesh dim: a
     batch shard stays; a head shard stays where the kv heads divide the mesh
     dim (each rank's q heads are then the groups of its kv heads); any other
     mesh dim (a shard of head_dim after a relocation, of heads that do not
     divide or of the sequence, a partial sum, a replica) shards the batch
-    rows further where they divide it, and is replicated only where they do
-    not: every placement but the last gives each rank whole rows and whole
-    kv groups, so none computes another's attention."""
+    rows further where they divide it; where they do not, a head shard of q
+    stays where each rank's q heads lie in one kv group (gemma2's 16/8 heads
+    over 16: k and v then come whole over that dim, ``_kv_placements``), and
+    the dim is replicated only where neither holds: every placement but the
+    last gives each rank whole rows and q heads with their kv heads, so
+    none computes another's attention. With ``heads`` False no head shard
+    stays (the sLSTM's loop over whole rows: batch rows only). Returns q's
+    placements."""
     from torch.distributed.tensor import Replicate, Shard
     nq, nkv = q.shape[2], k.shape[2]
     mesh = q.device_mesh
@@ -174,31 +172,49 @@ def _flash_placements(q, k):
         size = mesh.size(i)
         if pq == Shard(0) and pk == Shard(0):
             out.append(Shard(0))
-        elif Shard(2) in (pq, pk) and nq % size == 0 and nkv % size == 0:
+        elif heads and Shard(2) in (pq, pk) and nq % size == 0 and nkv % size == 0:
             out.append(Shard(2))
         elif rows % size == 0:
             out.append(Shard(0))
             rows //= size
+        elif heads and pq == Shard(2) and nq % size == 0 \
+                and (nq // nkv) % (nq // size) == 0:
+            out.append(Shard(2))
         else:
             out.append(Replicate())
     return tuple(out)
 
 
+def _kv_placements(want, nkv, mesh):
+    """k and v's placements beside q's ``want``: the same, but whole over a
+    mesh dim that shards the q heads and not the kv heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Replicate() if pl == Shard(2) and nkv % mesh.size(i) else pl
+                 for i, pl in enumerate(want))
+
+
 def _on_local_heads(q, k, v, compute, *positions):
     """``compute(q, k, v, *positions)`` on this rank's local q/k/v, taken
-    with ``_flash_placements`` (each redistribution recorded), and the rows
+    with ``_flash_placements`` (each move recorded in
+    ``rules.REDISTRIBUTIONS``: "attn_q", "attn_kv"), and the rows
     of each (b, s) position tensor that go with its local batch rows; the
     result a DTensor of the same placements."""
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial
 
+    from repro_torch.sharding import rules
     from repro_torch.sharding.rules import local_range
     mesh, want = q.device_mesh, _flash_placements(q, k)
-    if tuple(q.placements) != want or tuple(k.placements) != want \
-            or tuple(v.placements) != want:
-        entry = (tuple(q.placements), tuple(k.placements), want)
-        if entry not in FLASH_REDISTRIBUTIONS:
-            FLASH_REDISTRIBUTIONS.append(entry)
-    ql, kl, vl = (t.redistribute(mesh, want).to_local() for t in (q, k, v))
+    kv_want = _kv_placements(want, k.shape[2], mesh)
+    ql = rules.redistribute(q, want, "attn_q").to_local()
+    if kv_want == want:
+        kl, vl = (rules.redistribute(t, want, "attn_kv").to_local() for t in (k, v))
+    else:  # this rank's q heads' kv head, each rank's grad of it a partial sum
+        grad_pl = [Partial() if a != b else b for a, b in zip(want, kv_want)]
+        qlo, qhi = local_range(q.shape[2], mesh, want, 2)
+        group = q.shape[2] // k.shape[2]
+        kl, vl = (rules.redistribute(t, kv_want, "attn_kv").to_local(
+            grad_placements=grad_pl)[:, :, qlo // group:(qhi - 1) // group + 1]
+            for t in (k, v))
     lo, hi = local_range(q.shape[0], mesh, want, 0)
     rows = [(p.full_tensor() if isinstance(p, DTensor) else p)[lo:hi]
             for p in positions]
@@ -335,5 +351,6 @@ def attention_decode(p, x, cfg, cache, pos, *, kind):
     window = cfg.window_size if kind == "local_attn" else 0
     out = _sdpa(q, cache["k"], cache["v"], cfg, positions, cache["pos"],
                 causal=True, window=window)
-    out = torch.einsum("bsnh,nhd->bsd", out, p["wo"].to(x.dtype))
-    return out, cache
+    # the twin's einsum "bsnh,nhd->bsd" with wo, as the train path merges
+    # the heads (on a mesh a plain shard of the merged heads)
+    return _merge_heads(out, p["wo"]), cache

@@ -33,19 +33,18 @@ class _CastMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        rows = x.reshape(-1, x.shape[-1])
-        return rows.mm(w.to(x.dtype)).view(*x.shape[:-1], w.shape[-1])
+        return _view_rows(_rows(x).mm(w.to(x.dtype)),
+                          (*x.shape[:-1], w.shape[-1]))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         wc = w.to(x.dtype)
-        rows = x.reshape(-1, x.shape[-1])
-        g2 = g.reshape(-1, g.shape[-1])
+        rows, g2 = _rows(x), _rows(g)
         gx = gw = None
         if ctx.needs_input_grad[0]:
-            gx = g2.mm(wc.t()).view(x.shape)
+            gx = _view_rows(g2.mm(wc.t()), x.shape)
         if ctx.needs_input_grad[1]:
             if wc.stride(0) == 1 and wc.stride(1) == wc.shape[0]:
                 gw = g2.t().mm(rows).t()
@@ -53,6 +52,45 @@ class _CastMatmul(torch.autograd.Function):
                 gw = rows.t().mm(g2)
             gw = gw.to(w.dtype)
         return gx, gw
+
+
+def _rows(t):
+    """``t`` (..., n) as rows (prod(...), n). A DTensor sharded on a dim
+    between the first and the last (a dim that the rows merge as a minor
+    one, which no plain shard expresses) has those shards gathered first,
+    the move recorded (``rules.redistribute``): DTensor's rules shard a
+    replicated batch's sequence for free in a backward's elementwise op."""
+    if type(t) is torch.Tensor:  # no import on the plain path
+        return t.reshape(-1, t.shape[-1])
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        from repro_torch.sharding import rules
+        inner = [p.is_shard() and 0 < p.dim < t.ndim - 1 for p in t.placements]
+        if any(inner):
+            t = rules.redistribute(t, [Replicate() if r else p for r, p in
+                                       zip(inner, t.placements)], "rows_merge")
+    return t.reshape(-1, t.shape[-1])
+
+
+def _view_rows(t, shape):
+    """``t.view(shape)`` for rows ``t`` (prod(shape[:-1]), n). DTensor takes
+    a shard of the rows as a shard of ``shape[0]``, and may have sharded
+    them over mesh dims that ``shape[0]`` does not divide (its rules shard a
+    replicated operand's rows for free): those are gathered first, the move
+    recorded (``rules.redistribute``)."""
+    if type(t) is torch.Tensor:
+        return t.view(shape)
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        from repro_torch.sharding import rules
+        rows = [p.is_shard() and p.dim == 0 for p in t.placements]
+        n = 1
+        for i, r in enumerate(rows):
+            n *= t.device_mesh.size(i) if r else 1
+        if shape[0] % n:
+            t = rules.redistribute(t, [Replicate() if r else p for r, p in
+                                       zip(rows, t.placements)], "rows_view")
+    return t.view(shape)
 
 
 def cast_matmul(x, w):
@@ -103,18 +141,22 @@ def pointwise(fn, x):
                               run_check=False)
 
 
-def gather_dims(t, dims):
+def gather_dims(t, dims, tag=None):
     """DTensor ``t`` with every shard of a dim in ``dims`` gathered and any
     partial sum summed (those mesh dims replicated): for a reshape that
     merges such a dim into the one before it, which no plain shard
-    expresses, or an op over such a dim (a norm, the log-softmax), for which
-    DTensor would otherwise shard the sequence; ``t`` itself otherwise."""
+    expresses, or an op over such a dim (a norm), for which
+    DTensor would otherwise shard the sequence; ``t`` itself otherwise.
+    With a ``tag`` the move is recorded (``rules.redistribute``)."""
     from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.sharding import rules
     whole = lambda p: p.is_partial() or (p.is_shard() and p.dim in dims)
     if not isinstance(t, DTensor) or not any(whole(p) for p in t.placements):
         return t
-    return t.redistribute(t.device_mesh, [
-        Replicate() if whole(p) else p for p in t.placements])
+    want = [Replicate() if whole(p) else p for p in t.placements]
+    if tag is not None:
+        return rules.redistribute(t, want, tag)
+    return t.redistribute(t.device_mesh, want)
 
 
 def softcap(x, cap: float):
@@ -262,8 +304,25 @@ def embed(params, tokens, cfg):
 
 
 def unembed(params, x, cfg):
-    if cfg.tie_embeddings:
-        logits = cast_matmul(x, params["table"].T)
-    else:
-        logits = cast_matmul(x, params["unembed"])
+    w = params["table"].T if cfg.tie_embeddings else params["unembed"]
+    logits = cast_matmul(_head_input(x, w), w)
     return softcap(logits.float(), cfg.final_softcap)
+
+
+def _head_input(x, w):
+    """DTensor x whole over each mesh dim that shards the head's vocab
+    (column) dim, as the rules' activations are (batch over the data axes,
+    whole over "model"), so that the logits come out vocab-sharded: a layer
+    that ran on local rows leaves x's rows sharded over "model" too, and
+    DTensor would then gather the head's weight and make every rank's
+    logits a partial sum over the whole vocab. The move is recorded
+    (``rules.redistribute``); x as it is otherwise."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.sharding import rules
+    want = [Replicate() if pw == Shard(1) else px
+            for px, pw in zip(x.placements, w.placements)]
+    if want == list(x.placements):
+        return x
+    return rules.redistribute(x, want, "head_input")

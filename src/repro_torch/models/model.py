@@ -111,17 +111,21 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
 
     Two implementations, as in the JAX twin: the default takes
     ``log_softmax`` and gathers the label's entry; ``cfg.fused_xent``
-    takes logsumexp minus a masked pick of the label's logit.
+    takes logsumexp minus a masked pick of the label's logit. On DTensor
+    logits both are the vocab-parallel ``_nll_vocab_parallel``.
     """
+    from torch.distributed.tensor import DTensor
     logits, aux = forward(params, batch, cfg, remat=remat)
-    labels = batch["labels"]
+    # labels sharded past their batch dim (a batch the data axes do not
+    # divide, relocated by the rules) are gathered, as the embedding
+    # gathers the tokens: each rank then takes the loss of whole rows
+    labels = gather_dims(batch["labels"], (1,), tag="labels")
     mask = (labels >= 0).float()
     labels = labels.clamp_min(0).long()
-    # a vocab-sharded DTensor's logits gathered whole over the vocab here, as
-    # the log-softmax needs them (else DTensor may shard the sequence, which
-    # the backward's row-flattening products cannot take as a plain shard)
-    lf = gather_dims(logits.float(), (logits.ndim - 1,))
-    if cfg.fused_xent:
+    lf = logits.float()
+    if isinstance(lf, DTensor):
+        nll = _nll_vocab_parallel(lf, labels)
+    elif cfg.fused_xent:
         lse = torch.logsumexp(lf, dim=-1)
         vocab = torch.arange(lf.shape[-1], device=lf.device)
         picked = torch.where(vocab == labels[..., None], lf, 0.0).sum(-1)
@@ -132,6 +136,40 @@ def loss_fn(params, batch, cfg: ModelConfig, *, remat="none"):
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + aux, {"loss": loss, "aux": aux}
+
+
+def _nll_vocab_parallel(lf, labels):
+    """-log softmax(lf)[label] of DTensor logits lf (b, s, V) fp32 on each
+    rank's local logits, where the vocab stays sharded as the rules place
+    the table (a rank never holds the whole vocab): the logsumexp of each
+    rank's vocab rows, all-gathered over the vocab-sharded mesh dims and
+    combined, less the label's logit, which the rank holding it gives (the
+    others 0, summed over those mesh dims). Both cross-entropy arms
+    (``cfg.fused_xent`` or not) are this lse - picked. A partial sum of lf
+    (a table whose vocab the mesh dim does not divide, relocated onto d) is
+    summed into a vocab shard (a reduce-scatter, uneven where the dim does
+    not divide it); labels take lf's placements at (b, s)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding import rules
+    mesh, vocab = lf.device_mesh, lf.shape[-1]
+    lf = rules.redistribute(lf, [Shard(2) if p.is_partial() else p
+                                 for p in lf.placements], "logits_partial")
+    vdims = [i for i, p in enumerate(lf.placements) if p == Shard(2)]
+    rows = [Replicate() if i in vdims else p
+            for i, p in enumerate(lf.placements)]
+    labels = rules.redistribute(labels, rows, "labels").to_local()
+    lo, hi = rules.local_range(vocab, mesh, lf.placements, 2)
+    x = lf.to_local()
+    over = lambda t, pl: DTensor.from_local(t, mesh, [
+        pl if i in vdims else p for i, p in enumerate(rows)],
+        run_check=False).redistribute(mesh, rows).to_local()
+    # the logsumexp of each rank's vocab rows, gathered in mesh order
+    lse = torch.logsumexp(over(torch.logsumexp(x, -1)[..., None], Shard(2)), -1)
+    inside = (labels >= lo) & (labels < hi)
+    mine = x.gather(-1, (labels - lo).clamp(0, hi - lo - 1)[..., None])[..., 0]
+    picked = over(torch.where(inside, mine, 0.0), Partial())
+    return DTensor.from_local(lse - picked, mesh, rows, run_check=False)
 
 
 # ---------------------------------------------------------------------------

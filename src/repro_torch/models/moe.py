@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from repro_torch.models.layers import _winit, cast_bmm, cast_matmul, gather_dims
-from repro_torch.sharding.rules import current_mesh, maybe_constrain
+from repro_torch.sharding.rules import maybe_constrain, redistribute
 
 
 def init_moe(gen, cfg, device):
@@ -83,13 +83,14 @@ def route(p, x, cfg):
 
 
 class _BatchRows:
-    """The batch-local dispatch of ``moe_constrained`` on a mesh: x a
-    DTensor whose batch rows are sharded over the data axes and replicated
-    over "model". The router, the slots, the scatter and the gather run on
-    each rank's own rows (``local``); ``wrap`` makes a local result a
-    DTensor again, sharded over the data axes at its batch dim, and
-    ``mean`` a local mean over the rows the average of the ranks' (summed
-    at once: the aux loss multiplies two such means)."""
+    """The batch-local dispatch on a mesh: x a DTensor whose batch rows are
+    sharded over some mesh dims (the data axes) and replicated over the
+    others. The router, the slots, the scatter and the gather run on each
+    rank's own rows (``local``), so that no reshape of the dispatch merges
+    a sharded dim; ``wrap`` makes a local result a DTensor again, sharded
+    over the same mesh dims at its batch dim, and ``mean`` a local mean over
+    the rows the average of the ranks' (summed at once: the aux loss
+    multiplies two such means)."""
 
     def __init__(self, x):
         from torch.distributed.tensor import Partial, Replicate, Shard
@@ -124,12 +125,16 @@ class _BatchRows:
 def apply_moe(p, x, cfg):
     """x: (b, s, d) -> (y, aux_loss).
 
-    ``cfg.moe_constrained`` keeps the scatter entirely batch-local (E and C
-    replicated within a data shard), then reshards the dispatched buffer to
-    expert-parallel in one step, as the twin does: on a mesh
-    (``sharding.rules.set_mesh``) the router, the scatter and the gather
-    run on each rank's own rows (``_BatchRows``), the expert products on
-    DTensors; outside a mesh the constraints do nothing.
+    On DTensors the router, the slots, the scatter and the gather run on
+    each rank's own rows (``_BatchRows``), the expert products on DTensors,
+    and the expert outputs are taken back to the rows' placements for the
+    gather (both moves recorded in ``rules.REDISTRIBUTIONS``). The twin's
+    partitioner places these steps itself; DTensor's sharding rules for the
+    one-hot, the slot reshapes and the drop-row slice fail where a reshape
+    merges a sharded dim. ``cfg.moe_constrained`` adds the twin's
+    constraints: the scatter batch-local (E and C replicated within a data
+    shard), then the dispatched buffer resharded to expert-parallel in one
+    step; outside a mesh (``sharding.rules.set_mesh``) they do nothing.
     """
     e = cfg.moe
     k, E = e.top_k, e.num_experts
@@ -141,13 +146,14 @@ def apply_moe(p, x, cfg):
         router = p["router"]
         if cfg.moe_constrained:
             x = batch_only(x)  # x_rep, the scatter's source, is x's rows
-            if current_mesh() is not None and _is_dtensor(x):
-                # a batch the data axes do not divide was relocated onto the
-                # sequence: whole rows for the row-local dispatch
-                x = gather_dims(x, (1, 2))
-                rows = _BatchRows(x)
-                x_in = x
-                x, router = rows.local(x), rows.local(router, replicated_param=True)
+        if _is_dtensor(x):
+            # whole rows for the row-local dispatch: a batch the data axes
+            # do not divide was relocated onto the sequence, and a feature
+            # shard or a partial sum is gathered or summed
+            x = gather_dims(x, (1, 2), tag="moe_rows")
+            rows = _BatchRows(x)
+            x_in = x
+            x, router = rows.local(x), rows.local(router, replicated_param=True)
         b, s, d = x.shape
         gates, idx, f, pbar = _route(router, x, cfg)
 
@@ -180,8 +186,9 @@ def apply_moe(p, x, cfg):
     # --- combine: gather back + weight by gates ---
     with record_function("moe_combine"):
         if rows is not None:  # every expert's rows of this rank's batch
-            out = rows.local(out.redistribute(rows.mesh, [
-                rows.shard(1) if r else rows.replicate() for r in rows.rows]))
+            out = rows.local(redistribute(out, [
+                rows.shard(1) if r else rows.replicate() for r in rows.rows],
+                "moe_combine"))
         out = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))])  # drop row 0
         y = out.index_select(0, dest.reshape(-1)).view(b, s, k, d)
         y = (y * gates[..., None].to(x.dtype)).sum(2)           # (b, s, d)

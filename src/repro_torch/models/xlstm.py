@@ -67,7 +67,10 @@ def _mlstm_qkvg(p, x, cfg):
 
 
 def init_mlstm_state(cfg, batch, device):
-    nh, hd = cfg.num_heads, cfg.head_dim
+    return _zero_mlstm_state(batch, cfg.num_heads, cfg.head_dim, device)
+
+
+def _zero_mlstm_state(batch, nh, hd, device):
     return {
         "C": torch.zeros((batch, nh, hd, hd), device=device),  # (key, value)
         "n": torch.zeros((batch, nh, hd), device=device),
@@ -114,25 +117,65 @@ def _chunk(t, nc, L):
 def mlstm_chunkwise(p, x, cfg, state=None):
     """Chunkwise-parallel mLSTM (equals ``mlstm_sequential`` to fp32
     tolerance): chunks of length L, intra-chunk attention-like products and
-    the state carried over the s / L chunks."""
+    the state carried over the s / L chunks. On DTensors the recurrence runs
+    on each rank's local rows and heads (``_mlstm_local``)."""
+    from torch.distributed.tensor import DTensor
     b, s0, _ = x.shape
-    nh, hd = cfg.num_heads, cfg.head_dim
     L = min(cfg.chunk_size, s0)
     pad = (-s0) % L
     if pad:  # causal: trailing zero-pad never influences earlier outputs
         x = F.pad(x, (0, 0, 0, pad))
     s = s0 + pad
-    nc = s // L
     q, k, v, li, lf, og = _mlstm_qkvg(p, x, cfg)
     if pad:  # pad steps are state-neutral: f = 1 (no decay), i = 0 (no write)
         valid = (torch.arange(s, device=x.device) < s0)[None, :, None]
         li = torch.where(valid, li, -torch.inf)
         lf = torch.where(valid, lf, 0.0)
+    if not isinstance(q, DTensor):
+        h, state = _chunkwise(q, k, v, li, lf, og, state, L)
+    else:
+        h, state = _mlstm_local(q, k, v, li, lf, og, state, L)
+    return h[:, :s0].to(x.dtype), state
+
+
+def _mlstm_local(q, k, v, li, lf, og, state, L):
+    """``_chunkwise`` on each rank's local rows and heads. q/k/v/og (b, s,
+    nh, hd) and li/lf (b, s, nh) are DTensors; they take the placements
+    attention takes (``attention._flash_placements``: batch rows and whole
+    heads a rank, so no rank's recurrence needs another's), every move
+    recorded in ``rules.REDISTRIBUTIONS``. The state (b, nh, ...) takes the
+    same placements with the heads at dim 1. Returns h (b, s, nh, hd) and
+    the end state as DTensors of those placements. DTensor's rules for the
+    chunk reshapes and the 4-operand state einsum fail where head_dim is
+    sharded (4 heads on 16 "model" ranks relocate onto it)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.models.attention import _flash_placements
+    from repro_torch.sharding import rules
+    mesh, want = q.device_mesh, _flash_placements(q, k)
+    st_want = tuple(Shard(1) if pl == Shard(2) else pl for pl in want)
+    local = [rules.redistribute(t, want, "mlstm_" + name).to_local()
+             for name, t in zip(("q", "k", "v", "li", "lf", "og"),
+                                (q, k, v, li, lf, og))]
+    if state is not None:
+        state = {n: rules.redistribute(t, st_want, "mlstm_state").to_local()
+                 for n, t in state.items()}
+    h, end = _chunkwise(*local, state, L)
+    wrap = lambda t, pl: DTensor.from_local(t, mesh, pl, run_check=False)
+    return wrap(h, want), {n: wrap(t, st_want) for n, t in end.items()}
+
+
+def _chunkwise(q, k, v, li, lf, og, state, L):
+    """The chunkwise recurrence over plain tensors: q/k/v/og (b, s, nh, hd),
+    li/lf (b, s, nh), s a multiple of L. Returns (h * og (b, s, nh, hd)
+    fp32, the end state)."""
+    b, s, nh, hd = q.shape
+    nc = s // L
     qc, kc, vc = (_chunk(t.float(), nc, L) for t in (q, k, v))
     lic, lfc = (_chunk(t, nc, L) for t in (li, lf))       # (nc, b, nh, L)
 
-    state = state or init_mlstm_state(cfg, b, x.device)
-    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    state = state or _zero_mlstm_state(b, nh, hd, q.device)
+    causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     C0, n0, m0 = state["C"], state["n"], state["m"]
     hs = []
     with record_function("mlstm_chunk"):
@@ -164,8 +207,7 @@ def mlstm_chunkwise(p, x, cfg, state=None):
             n0 = wC0[..., None] * n0 + torch.einsum("bnt,bnth->bnh", wkj, kt)
             m0 = m1
     h = torch.stack(hs, 1).transpose(2, 3).reshape(b, s, nh, hd)
-    h = (h * og)[:, :s0]
-    return h.to(x.dtype), {"C": C0, "n": n0, "m": m0}
+    return h * og, {"C": C0, "n": n0, "m": m0}
 
 
 def apply_mlstm_block(p, x, cfg):
@@ -201,7 +243,10 @@ def init_slstm(gen, cfg, device):
 
 
 def init_slstm_state(cfg, batch, device):
-    shape = (batch, cfg.num_heads, cfg.head_dim)
+    return _zero_slstm_state((batch, cfg.num_heads, cfg.head_dim), device)
+
+
+def _zero_slstm_state(shape, device):
     return {"h": torch.zeros(shape, device=device),
             "c": torch.zeros(shape, device=device),
             "n": torch.zeros(shape, device=device),
@@ -213,7 +258,10 @@ def _slstm_pre(p, x):
     "...d,gdnh->...gnh" of x with w, plus b. x: (..., d) -> (..., 4, nh, hd)."""
     g, d, nh, hd = p["w"].shape
     w = gather_dims(p["w"], (2, 3)).permute(1, 0, 2, 3).reshape(d, g * nh * hd)
-    return (x.float() @ w).unflatten(-1, (g, nh, hd)) + p["b"]
+    # the bias whole too: a head or head_dim shard of it would shard the
+    # preactivations, whose grad the product's backward merges again
+    b = gather_dims(p["b"], (1, 2), tag="slstm_b")
+    return (x.float() @ w).unflatten(-1, (g, nh, hd)) + b
 
 
 def _recurrent_weights(r):
@@ -243,16 +291,60 @@ def _slstm_step_core(pre_x, rr, state):
     return h1, {"h": h1, "c": c1, "n": n1, "m": m1}
 
 
-def slstm_scan(p, x, cfg, state=None):
-    """x: (b, s, d) -> ((b, s, nh, hd), state). Strictly sequential."""
-    state = state or init_slstm_state(cfg, x.shape[0], x.device)
-    rr = _recurrent_weights(p["r"])
+def _slstm_local(pre, rr, state, steps):
+    """``steps(pre, rr, state)`` on each rank's local rows: the input
+    preactivations pre (b, ..., 4, nh, hd) and the state (b, nh, hd) take
+    attention's placements less its head shards
+    (``attention._flash_placements(pre, pre, heads=False)``: a shard of the
+    rows stays, any other mesh dim shards the rows further where they
+    divide it and is replicated where they do not, so that no rank's
+    recurrence needs another's), the recurrent weights whole (their grad a
+    partial sum over the mesh dims that shard the rows), every move
+    recorded in ``rules.REDISTRIBUTIONS``.
+    Returns (h, state) as DTensors of those placements. The loop over time
+    runs on plain tensors: DTensor's rules for the recurrent product's
+    reshapes fail where head_dim is sharded (a batch of 1 relocated onto
+    it), and its dispatch would cost the host a lookup an op a step."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.models.attention import _flash_placements
+    from repro_torch.sharding import rules
+    if not isinstance(pre, DTensor):
+        return steps(pre, rr, state)
+    mesh, want = pre.device_mesh, _flash_placements(pre, pre, heads=False)
+    pre = rules.redistribute(pre, want, "slstm_pre").to_local()
+    if isinstance(rr, DTensor):
+        # each rank's grad of the weights sums its own rows only: a partial
+        # sum over the mesh dims that shard the rows
+        rr = rules.redistribute(rr, (Replicate(),) * mesh.ndim, "slstm_r").to_local(
+            grad_placements=[Partial() if pl == Shard(0) else Replicate()
+                             for pl in want])
+    if state is not None:
+        state = {n: rules.redistribute(t, want, "slstm_state").to_local()
+                 for n, t in state.items()}
+    h, end = steps(pre, rr, state)
+    wrap = lambda t: DTensor.from_local(t, mesh, want, run_check=False)
+    return wrap(h), {n: wrap(t) for n, t in end.items()}
+
+
+def _slstm_steps(pre, rr, state):
+    """The sLSTM loop over time on plain tensors: pre (b, s, 4, nh, hd)."""
+    b, _, _, nh, hd = pre.shape
+    state = state or _zero_slstm_state((b, nh, hd), pre.device)
     hs = []
     with record_function("slstm_scan"):
-        for pre_t in _slstm_pre(p, x).unbind(1):
+        for pre_t in pre.unbind(1):
             h, state = _slstm_step_core(pre_t, rr, state)
             hs.append(h)
-    return torch.stack(hs, 1).to(x.dtype), state
+    return torch.stack(hs, 1), state
+
+
+def slstm_scan(p, x, cfg, state=None):
+    """x: (b, s, d) -> ((b, s, nh, hd), state). Strictly sequential; on
+    DTensors on each rank's local rows (``_slstm_local``)."""
+    h, state = _slstm_local(_slstm_pre(p, x), _recurrent_weights(p["r"]),
+                            state, _slstm_steps)
+    return h.to(x.dtype), state
 
 
 def apply_slstm_block(p, x, cfg):
@@ -263,8 +355,9 @@ def apply_slstm_block(p, x, cfg):
 def apply_slstm_block_step(p, x, cfg, state):
     """Decode: x (b, 1, d) -> ((b, 1, d), state), the state written in
     place."""
-    h, new = _slstm_step_core(_slstm_pre(p, x[:, 0]), _recurrent_weights(p["r"]),
-                              {k: t.clone() for k, t in state.items()})
+    h, new = _slstm_local(_slstm_pre(p, x[:, 0]), _recurrent_weights(p["r"]),
+                          {k: t.clone() for k, t in state.items()},
+                          _slstm_step_core)
     out = _merge_heads(h.to(x.dtype), p["wo"])
     for k, t in new.items():
         state[k].copy_(t)

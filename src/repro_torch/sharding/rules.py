@@ -381,6 +381,24 @@ def local_slices(shape, mesh, placements) -> tuple:
                  for d, n in enumerate(shape))
 
 
+# Redistributions that the model's local-tensor paths run on a mesh (the
+# MoE's row-local dispatch and combine, the mLSTM's recurrence on local
+# heads), each (tag, the placements before, the placements after); the dry
+# run clears and records them, as it does RELOCATIONS.
+REDISTRIBUTIONS: list = []
+
+
+def redistribute(t, placements, tag: str):
+    """DTensor ``t`` redistributed to ``placements`` on its mesh, the move
+    recorded in ``REDISTRIBUTIONS`` (once) where it changes them."""
+    placements = tuple(placements)
+    if tuple(t.placements) != placements:
+        entry = (tag, tuple(t.placements), placements)
+        if entry not in REDISTRIBUTIONS:
+            REDISTRIBUTIONS.append(entry)
+    return t.redistribute(t.device_mesh, placements)
+
+
 def distribute(tree, mesh, placements):
     """Each tensor of ``tree`` as a DTensor of ``mesh`` with the matching
     placements of ``placements`` (a tree of the same nesting). Every rank

@@ -29,8 +29,10 @@ def test_cli_on_xlstm_decode_matches_the_twins_arguments(mesh, tmp_path,
                                                          monkeypatch, capsys):
     """``python -m repro_torch.launch.dryrun --arch xlstm-125m --shape
     decode_32k --mesh M --no-roofline``: the rank's arguments are the JAX
-    twin's to the byte (params, recurrent state, token), and the record has
-    the twin's keys, or their stand-ins with a reason."""
+    twin's to the byte (params, recurrent state, token) once the position
+    the xLSTM never reads is taken off (4 unread bytes, which the twin's
+    ``jax.jit`` prunes), and the record has the twin's keys, or their
+    stand-ins with a reason."""
     monkeypatch.setattr(sys, "argv", [
         "dryrun", "--arch", "xlstm-125m", "--shape", "decode_32k", "--mesh",
         mesh, "--no-roofline", "--out", str(tmp_path)])
@@ -42,7 +44,8 @@ def test_cli_on_xlstm_decode_matches_the_twins_arguments(mesh, tmp_path,
     assert {k: rec[k] for k in ("arch", "shape", "mesh", "variant", "chips")} \
         == {k: twin[k] for k in ("arch", "shape", "mesh", "variant", "chips")}
     full = rec["full"]
-    assert full["memory"]["argument_bytes"] == twin["full"]["memory"]["argument_bytes"]
+    assert full["memory"]["unread_argument_bytes"] == 4  # the int32 position
+    assert full["memory"]["argument_bytes"] - 4 == twin["full"]["memory"]["argument_bytes"]
     assert set(full["memory"]) >= set(twin["full"]["memory"])
     assert full["memory"]["temp_bytes"] > 0
     assert "MemTracker" in full["memory"]["temp_bytes_source"]
@@ -81,7 +84,7 @@ def test_run_one_with_the_roofline(tmp_path, monkeypatch):
     assert roof["terms"]["chips"] == 256
     assert roof["terms"]["dominant"] in ("compute", "memory", "collective")
     assert rec["full"]["relocations"] == []
-    assert rec["full"]["flash_redistributions"] == []
+    assert rec["full"]["redistributions"] == []
     # the train step's collectives: the tensor-parallel partial sums and
     # the replicated params' grads over "data"
     assert rec["full"]["collective_ops"]["all-reduce"] > 0
