@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from repro_torch.obs.ranges import span
+
 
 def cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
@@ -28,19 +30,22 @@ class _CastMatmul(torch.autograd.Function):
     and runs the ``mm`` backward that autograd runs for the product (which
     takes grad_w transposed when the cast weight is column-major), then
     casts grad_w to ``w``'s dtype as the cast's own backward does: the same
-    values, without the cast copy among the saved tensors."""
+    values, without the cast copy among the saved tensors. Each cast opens
+    the profiler range "cast" (``obs.ranges``)."""
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return _view_rows(_rows(x).mm(w.to(x.dtype)),
-                          (*x.shape[:-1], w.shape[-1]))
+        with span("cast"):
+            wc = w.to(x.dtype)
+        return _view_rows(_rows(x).mm(wc), (*x.shape[:-1], w.shape[-1]))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        wc = w.to(x.dtype)
+        with span("cast"):
+            wc = w.to(x.dtype)
         rows, g2 = _rows(x), _rows(g)
         gx = gw = None
         if ctx.needs_input_grad[0]:
@@ -50,7 +55,8 @@ class _CastMatmul(torch.autograd.Function):
                 gw = g2.t().mm(rows).t()
             else:
                 gw = rows.t().mm(g2)
-            gw = gw.to(w.dtype)
+            with span("cast"):
+                gw = gw.to(w.dtype)
         return gx, gw
 
 
@@ -106,18 +112,23 @@ class _CastBmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.bmm(x, w.to(x.dtype))
+        with span("cast"):
+            wc = w.to(x.dtype)
+        return torch.bmm(x, wc)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        wc = w.to(x.dtype)
+        with span("cast"):
+            wc = w.to(x.dtype)
         gx = gw = None
         if ctx.needs_input_grad[0]:
             gx = torch.bmm(g, wc.transpose(1, 2))
         if ctx.needs_input_grad[1]:
-            gw = torch.bmm(x.transpose(1, 2), g).to(w.dtype)
+            gw = torch.bmm(x.transpose(1, 2), g)
+            with span("cast"):
+                gw = gw.to(w.dtype)
         return gx, gw
 
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ModelConfig
@@ -28,6 +27,7 @@ from repro_torch.models.blocks import PatternStack
 from repro_torch.models.layers import (apply_norm, cdtype, embed,
                                        gather_dims, init_embed, init_norm,
                                        unembed)
+from repro_torch.obs.ranges import span
 
 ENCODER_FRAMES = 1500  # whisper-style fixed encoder length (core/flops.py)
 
@@ -67,7 +67,7 @@ def encode(params, enc_embeds, cfg):
     frame embeddings. Bidirectional attention (``_sdpa``) with RoPE. A
     profiler sees its forward as the range "encoder"."""
     _, enc = _stacks(cfg)
-    with record_function("encoder"):
+    with span("encoder"):
         x = enc_embeds.to(cdtype(cfg))
         x, _ = enc.apply(params["encoder"]["blocks"], x,
                          _positions(*x.shape[:2], x.device), causal=False)

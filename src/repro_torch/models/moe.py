@@ -29,9 +29,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models.layers import _winit, cast_bmm, cast_matmul, gather_dims
+from repro_torch.obs.ranges import span
 from repro_torch.sharding.rules import maybe_constrain, redistribute
 
 
@@ -142,7 +142,7 @@ def apply_moe(p, x, cfg):
     batch_only = lambda t: maybe_constrain(
         t, ("pod", "data"), *([None] * (t.ndim - 1)))
     rows = None
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         router = p["router"]
         if cfg.moe_constrained:
             x = batch_only(x)  # x_rep, the scatter's source, is x's rows
@@ -184,7 +184,7 @@ def apply_moe(p, x, cfg):
         out = maybe_constrain(out, "model", ("pod", "data"), None)
 
     # --- combine: gather back + weight by gates ---
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         if rows is not None:  # every expert's rows of this rank's batch
             out = rows.local(redistribute(out, [
                 rows.shard(1) if r else rows.replicate() for r in rows.rows],

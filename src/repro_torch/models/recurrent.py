@@ -21,9 +21,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
-from torch.profiler import record_function
 
 from repro_torch.models.layers import _winit, cast_matmul
+from repro_torch.obs.ranges import span
 
 _C = 8.0
 
@@ -103,7 +103,7 @@ def linear_scan(a, x):
     (b, s, w): the associative scan of the twin, in log2(s) rounds. A
     profiler sees its forward as the range "rglru_scan" and its backward
     as "_LinearScanBackward"."""
-    with record_function("rglru_scan"):
+    with span("rglru_scan"):
         return _LinearScan.apply(a, x)
 
 

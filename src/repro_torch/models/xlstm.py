@@ -25,10 +25,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.models.attention import _heads, _merge_heads
 from repro_torch.models.layers import _winit, gather_dims, pointwise
+from repro_torch.obs.ranges import span
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +178,7 @@ def _chunkwise(q, k, v, li, lf, og, state, L):
     causal = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
     C0, n0, m0 = state["C"], state["n"], state["m"]
     hs = []
-    with record_function("mlstm_chunk"):
+    with span("mlstm_chunk"):
         for qt, kt, vt, lit, lft in zip(*(t.unbind(0) for t in (
                 qc, kc, vc, lic, lfc))):
             g = torch.cumsum(lft, dim=-1)               # inclusive decay cumsum
@@ -332,7 +332,7 @@ def _slstm_steps(pre, rr, state):
     b, _, _, nh, hd = pre.shape
     state = state or _zero_slstm_state((b, nh, hd), pre.device)
     hs = []
-    with record_function("slstm_scan"):
+    with span("slstm_scan"):
         for pre_t in pre.unbind(1):
             h, state = _slstm_step_core(pre_t, rr, state)
             hs.append(h)

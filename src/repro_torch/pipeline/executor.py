@@ -67,6 +67,7 @@ from repro_torch.memory.store import ActivationStore, StoreStats
 from repro_torch.models import blocks as blocks_mod
 from repro_torch.models.layers import cdtype
 from repro_torch.obs.events import Recorder, Span
+from repro_torch.obs.ranges import now_ns, span
 from repro_torch.pipeline import stage as stage_mod
 from repro_torch.transfer.channel import channel_key
 from repro_torch.transfer.runtime import AsyncTransferRuntime
@@ -80,6 +81,10 @@ class StepResult:
     # Spans of the traced step (``obs.events.Span``), wall-clock seconds
     # relative to step start. None unless step(trace=True).
     events: Optional[List[Span]] = None
+    # The step's start in ns on the profiler's host clock
+    # (``obs.ranges.now_ns``), read beside the spans' own start: a span
+    # lies at t0_ns + start on a trace of the step.
+    t0_ns: int = 0
 
 
 @dataclasses.dataclass
@@ -112,6 +117,10 @@ def _kv_own_of(entry):
 
 def _add(a, b):
     return b if a is None else a if b is None else a + b
+
+
+def _range_name(ins) -> str:
+    return f"pipe.{ins.op}.wait" if ins.is_wait else f"pipe.{ins.op}"
 
 
 class PipelineExecutor:
@@ -156,6 +165,13 @@ class PipelineExecutor:
         return P.compile_plan(self.spec.with_m(m))
 
     def step(self, params, batch, trace: bool = False) -> StepResult:
+        """One training step over ``batch``; ``trace=True`` records a span
+        of each instruction, the card synchronised at its end. A profiler
+        sees the step as the range ``pipe.step`` (``obs.ranges``)."""
+        with span("pipe.step"):
+            return self._step(params, batch, trace)
+
+    def _step(self, params, batch, trace: bool) -> StepResult:
         cfg, p = self.cfg, self.p
         nv = self.n_virtual
         bsz = batch["tokens"].shape[0]
@@ -193,15 +209,21 @@ class PipelineExecutor:
             op for op, pol in {**respol.RELEASE_OPS,
                                **respol.RESTORE_OPS}.items() if pol.swap)
 
-        stage_params = self.splitter.split(params)
-        stage_paths, stage_leaves = zip(*(
-            zip(*T.leaves_with_paths(sp)) for sp in stage_params))
+        with span("pipe.split"):
+            stage_params = self.splitter.split(params)
+            stage_paths, stage_leaves = zip(*(
+                zip(*T.leaves_with_paths(sp)) for sp in stage_params))
+            micros = [
+                {k: val[j * self.b:(j + 1) * self.b]
+                 for k, val in batch.items()}
+                for j in range(m)]
         schedule = self._schedule_for(m)
         bounds = schedule.bounds
         partner = schedule.partner
         # trace=True attaches a Recorder; without it the step takes no
         # timings.
         observer: Optional[Recorder] = Recorder() if trace else None
+        t0_ns = now_ns()
         t_step0 = time.perf_counter()
         clock = lambda: time.perf_counter() - t_step0  # noqa: E731
         # At most ``depth`` real copies in flight per channel (the live
@@ -213,10 +235,6 @@ class PipelineExecutor:
             pol = respol.RELEASE_OPS.get(op) or respol.RESTORE_OPS[op]
             return channel_key(pol.mechanism, i, partner.get(i),
                                release=op in respol.RELEASE_OPS)
-
-        micros = [
-            {k: val[j * self.b:(j + 1) * self.b] for k, val in batch.items()}
-            for j in range(m)]
 
         # act_in/grad_in are keyed by the *virtual* stage they feed (plus
         # the sequence slice, always 0 here).
@@ -296,22 +314,24 @@ class PipelineExecutor:
             return out, Graph(outs, leaves, box, kv, edges)
 
         def wrap(body):
-            """Shared post-instruction bookkeeping: span emission through
-            the attached observer (synchronising the card so the span
-            covers device time, not the launch) and the live stash-cap
-            assertion."""
+            """Shared instruction handling: the body runs inside its
+            profiler range (``pipe.<OP>``, ``pipe.<OP>.wait``); then span
+            emission through the attached observer (synchronising the card
+            so the span covers device time, not the launch) and the live
+            stash-cap assertion. The dep-gated run hands a handler only
+            ready instructions, so F's and B's pops find their input."""
             def handler(i, ins):
-                t0 = time.perf_counter() if observer is not None else 0.0
-                sync = body(i, ins)
-                if sync is P.BLOCKED:
-                    return P.BLOCKED
+                with span(_range_name(ins)):
+                    t0 = clock() if observer is not None else 0.0
+                    sync = body(i, ins)
+                    if observer is not None:
+                        if sync is not None and dev.type == "cuda":
+                            torch.cuda.synchronize(dev)
+                        t1 = clock()
                 if observer is not None:
-                    if sync is not None and dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
                     observer.emit(
                         ins.op, i, ins.mb, ins.chunk, ins.sl, ins.phase,
-                        t0 - t_step0, time.perf_counter() - t_step0,
-                        hbm=store.resident_bytes(i))
+                        t0, t1, hbm=store.resident_bytes(i))
                 if self.cap is not None:
                     # swap ops (EVICT/LOAD) also touch the partner's
                     # store — check both ends so acceptor-side transients
@@ -326,9 +346,7 @@ class PipelineExecutor:
         def on_f(i, ins):
             vs, sl = ins.vs, ins.sl
             # pop: the boundary activation has exactly one consumer
-            carry = () if vs == 0 else act_in.pop((vs, ins.mb, sl), None)
-            if carry is None:
-                return P.BLOCKED
+            carry = () if vs == 0 else act_in.pop((vs, ins.mb, sl))
             out, graph = forward(i, ins, carry)
             # recompute residency keeps the boundary input alongside the
             # graph: DROP strips to it, RECOMPUTE re-forwards from it
@@ -347,9 +365,7 @@ class PipelineExecutor:
             if vs == nv - 1:
                 cot = (scale / cnt[ins.mb], scale) if sliced else (scale,)
             else:
-                cot = grad_in.pop((vs, ins.mb, sl), None)
-                if cot is None:
-                    return P.BLOCKED
+                cot = grad_in.pop((vs, ins.mb, sl))
             entry = store.pop(i, ins.mb, ins.chunk, sl)
             graph = entry[0] if is_recompute else entry
             live = [(o, g) for o, g in zip(graph.out, cot) if o.requires_grad]
@@ -364,7 +380,8 @@ class PipelineExecutor:
                                       grad_outputs=[g for _, g in live],
                                       allow_unused=True)
             k = len(stage_leaves[vs])
-            grads[vs] = [_add(a, g) for a, g in zip(grads[vs], got[:k])]
+            with span("pipe.grad_sum"):
+                grads[vs] = [_add(a, g) for a, g in zip(grads[vs], got[:k])]
             # the carry's grads, then the KV prefix's
             rest = [torch.zeros_like(t) if g is None else g
                     for t, g in zip(graph.leaves[k:], got[k:])]
@@ -438,13 +455,15 @@ class PipelineExecutor:
         xfers.drain()                       # no copy escapes the step
 
         loss = sum(losses.values()) * scale
-        stage_grads = [
-            T.unflatten(paths, [torch.zeros_like(t) if g is None else g
-                                for t, g in zip(leaves, gs)])
-            for paths, leaves, gs in zip(stage_paths, stage_leaves, grads)]
+        with span("pipe.merge"):
+            stage_grads = [
+                T.unflatten(paths, [torch.zeros_like(t) if g is None else g
+                                    for t, g in zip(leaves, gs)])
+                for paths, leaves, gs in zip(stage_paths, stage_leaves,
+                                             grads)]
+            merged = self.splitter.merge(stage_grads)
         stats = store.stats()
         stats.transfers_inflight_peak = xfers.inflight_peak
-        return StepResult(loss=loss, grads=self.splitter.merge(stage_grads),
-                          stats=stats,
+        return StepResult(loss=loss, grads=merged, stats=stats,
                           events=list(observer.spans)
-                          if observer is not None else None)
+                          if observer is not None else None, t0_ns=t0_ns)
