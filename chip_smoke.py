@@ -150,6 +150,18 @@ Phases, each fatal on failure:
      from the single-device step's (printed; no bar depends on them), one
      loss on every rank, the flash launches per rank (layers x steps) and
      the row's seconds (reference and ranks).
+ 16. (run first, after phase 1) the rope kernel (``csrc/rope.cu``, q and k in one launch a direction): its forward against the plain chain bit for bit and its
+     backward against the float64 grads at the bf16 bars, then both
+     directions timed beside the plain chain and the bound at granite-moe's
+     microbatch (b 4 x 2048, 16/8 x 64) and gpt3-96b's (b 1 x 2048, 104/104 x
+     96), and its launches on the pipelined step (``ROPE_PIPE``: one forward
+     and one backward a layer and microbatch). ``python3 -c "import
+     chip_smoke; chip_smoke.rope_main()"`` runs phases 1 and 16 alone.
+     Every path's rope launches are read from its own run with the flash
+     launches (``counts_read``): phases 14 and 15's ranks must launch rope
+     exactly as often as the flash forward and dq (``rope_launches``), and
+     every path at least as often (``rope_short``), so no rotary embedding
+     beside a flash call leaves the kernel.
 It prints a JSON line of the kernels' numbers, then, last, the ok line. It
 exits non-zero, printing no result, without a card or without the repo.
 """
@@ -393,11 +405,155 @@ SHARDED_FP32_FULL = dict(arch="granite-moe-1b-a400m", batch=1, seq=2048,
 SHARDED_LOSS_RTOL, SHARDED_RTOL = 1e-3, 3e-2
 SHARDED_FP32_LOSS, SHARDED_FP32_ATOL, SHARDED_FP32_RTOL = 1e-5, 2e-6, 1e-4
 SHARDED_TIMEOUT_S = 600
+# phase 16, the rope kernel: (label, b, s, nq, nkv, hd) of the main paths'
+# microbatches, each timed; and the pipelined step whose launches are counted
+ROPE_TIMED = [("granite-moe-1b-a400m", 4, 2048, 16, 8, 64),
+              ("gpt3-96b", 1, 2048, 104, 104, 96)]
+ROPE_PIPE = dict(arch="granite-moe-1b-a400m", layers=4, p=4, micro=4, m=4, seq=2048)
 
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def rope_phase(torch, dev, gen, smi):
+    """Phase 16: the rope kernel against its plain version, timed at
+    ``ROPE_TIMED`` beside the plain chain and the bound, and its launches on
+    the pipelined step (``ROPE_PIPE``). Returns its row of the kernels'
+    JSON line."""
+    from repro_torch.core.h100 import H100_HBM_BW
+    from repro_torch.core.plan import ScheduleSpec
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rope as rp
+    from repro_torch.models import model as M
+    from repro_torch.pipeline import PipelineExecutor
+    from repro_torch.serve import config_for
+
+    theta, timed, max_err = 10_000.0, [], 0.0
+    for label, b, s, nq, nkv, hd in ROPE_TIMED:
+        q, k, gq, gk = (torch.randn((b, s, n, hd), generator=gen, device=dev)
+                        .to(torch.bfloat16) for n in (nq, nkv, nq, nkv))
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        freq = rp.freqs(theta, hd // 2, dev)
+        qo, ko = rp.rope_fwd(q, k, pos, freq)
+        dq, dk = rp.rope_bwd(gq, gk, pos, freq)
+        same = (torch.equal(qo, ref.rope_ref(q, pos, freq))
+                and torch.equal(ko, ref.rope_ref(k, pos, freq))
+                and torch.equal(dq, ref.rope_bwd_ref(gq, pos, freq))
+                and torch.equal(dk, ref.rope_bwd_ref(gk, pos, freq)))
+        errs = []
+        for got, x, g in ((dq, q, gq), (dk, k, gk)):
+            x64 = x.double().requires_grad_(True)
+            (want,) = torch.autograd.grad(ref.rope_ref(x64, pos, freq), x64, g.double())
+            errs.append(grad_agree(torch, got, want, "bfloat16"))
+            del x64, want
+        ok = same and all(e[1] for e in errs)
+        max_err = max([max_err] + [e[0] for e in errs])
+        print(f"[check] rope {label} b{b} s{s} {nq}/{nkv}x{hd} bf16: forward and "
+              f"backward equal to the plain versions bit for bit {same}; backward "
+              f"max_abs_err dq {errs[0][0]:.3e} dk {errs[1][0]:.3e} against float64 "
+              f"(within {G_RTOL}|want| + {G_ATOL} max|want| and 2.5e-2) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"the rope kernel disagrees with its plain version at {label}")
+        n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        fwd_ms = time_ms(torch, lambda: rp.rope_fwd(q, k, pos, freq), 50)
+        bwd_ms = time_ms(torch, lambda: rp.rope_bwd(gq, gk, pos, freq), 50)
+        dev_ms = kernel_device_ms(torch, lambda: (rp.rope_fwd(q, k, pos, freq),
+                                                  rp.rope_bwd(gq, gk, pos, freq)),
+                                  ["rope_kernel"], iters=20, need=False).get("rope_kernel")
+        kernel_by = "profiler"
+        if dev_ms is None:  # the guide's fallback: CUDA events, back to back
+            dev_ms, kernel_by = min(fwd_ms, bwd_ms), "CUDA events, back to back"
+        host_us = []
+        for direction in (lambda: rp.rope_fwd(q, k, pos, freq),
+                          lambda: rp.rope_bwd(gq, gk, pos, freq)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                direction()
+            host_us.append((time.perf_counter() - t0) / 20 * 1e6)
+            torch.cuda.synchronize()
+        plain_fwd = time_ms(torch, lambda: (ref.rope_ref(q, pos, freq),
+                                            ref.rope_ref(k, pos, freq)), 10)
+        qr, kr = q.clone().requires_grad_(True), k.clone().requires_grad_(True)
+        outs = (ref.rope_ref(qr, pos, freq), ref.rope_ref(kr, pos, freq))
+        plain_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            outs, (qr, kr), (gq, gk), retain_graph=True), 10)
+        bound = n_bytes / H100_HBM_BW * 1e3
+        timed.append({"shape": [label, b, s, nq, nkv, hd], "kernel_ms": dev_ms,
+                      "kernel_ms_by": kernel_by,
+                      "host_us_fwd_bwd": host_us, "fwd_ms": fwd_ms,
+                      "bwd_ms": bwd_ms, "plain_fwd_ms": plain_fwd,
+                      "plain_bwd_ms": plain_bwd, "bound_ms": bound, "bound_by": "bytes"})
+        print(f"[time] rope {label} b{b} s{s} {nq}/{nkv}x{hd} bf16: kernel "
+              f"{dev_ms:.4f} ms a launch on the device ({kernel_by}; forward and "
+              f"backward alike), host {host_us[0]:.1f} / {host_us[1]:.1f} us a call "
+              f"forward / backward; back to back (CUDA events) forward "
+              f"{fwd_ms:.4f} ms, backward {bwd_ms:.4f} ms; bound {bound:.4f} ms "
+              f"({n_bytes / 1e6:.1f} MB at {H100_HBM_BW / 1e12:.2f} TB/s); plain chain "
+              f"forward {plain_fwd:.4f} ms, backward (autograd) {plain_bwd:.4f} ms; {smi}")
+        del q, k, gq, gk, qo, ko, dq, dk, qr, kr, outs
+        torch.cuda.empty_cache()
+
+    t = ROPE_PIPE
+    cfg = config_for(t["arch"], layers=t["layers"], attn_impl="flash")
+    params = M.init_params(torch.Generator(dev).manual_seed(0), cfg, dev)
+    toks = torch.randint(0, cfg.vocab_size, (t["m"] * t["micro"], t["seq"] + 1),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    ex = PipelineExecutor(cfg, ScheduleSpec("bpipe", t["p"], t["m"]),
+                          micro_batch=t["micro"], remat="flash")
+    ex.step(params, batch)
+    torch.cuda.synchronize()
+    before = (rp.rope_fwd.launches, rp.rope_bwd.launches)
+    ex.step(params, batch)
+    torch.cuda.synchronize()
+    launches = (rp.rope_fwd.launches - before[0], rp.rope_bwd.launches - before[1])
+    want = t["layers"] * t["m"]
+    ok = launches == (want, want)
+    print(f"[check] rope launches on {cfg.name}'s pipelined step (bpipe p {t['p']}, "
+          f"{t['layers']} layers, m {t['m']} x {t['micro']} x {t['seq']}): forward "
+          f"{launches[0]}, backward {launches[1]}, want {want} each "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the pipelined step does not launch the rope kernel once a direction "
+             "a layer and microbatch")
+    del ex, params, batch, toks
+    torch.cuda.empty_cache()
+    return {"name": "rope_qk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rope.cu",
+            "replaces": "none (the JAX package leaves rope to XLA)",
+            "launches_by_path": {"pipelined step, one step": {
+                "rope_fwd": launches[0], "rope_bwd": launches[1]}},
+            "max_abs_err": max_err, "at_shapes": timed}
+
+
+def rope_main():
+    """Phases 1 (the card, the rope kernel's build and its ptxas report) and
+    16 alone."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    from repro_torch.kernels import build
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {smi}")
+    t0 = time.perf_counter()
+    build.build(["rope"])
+    print(f"[build] rope in {time.perf_counter() - t0:.1f} s")
+    for line in build.build_logs.get("rope", "").splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"  {line.strip()}")
+    dev = torch.device("cuda")
+    row = rope_phase(torch, dev, torch.Generator(dev).manual_seed(0), smi)
+    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 def tol(dtype):
@@ -599,9 +755,11 @@ def sliced_kernel_times(torch, F, fa, ref, qkv, gen, dev, smi):
     return rows
 
 
-def kernel_device_ms(torch, fn, names, iters=5):
+def kernel_device_ms(torch, fn, names, iters=5, need=True):
     """Device time per launch of each kernel whose name holds one of
-    ``names``, from torch.profiler over ``iters`` calls of ``fn``."""
+    ``names``, from torch.profiler over ``iters`` calls of ``fn``; a name
+    the profiler shows no device time for fails the run, or with ``need``
+    False is left out."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -615,7 +773,7 @@ def kernel_device_ms(torch, fn, names, iters=5):
             if n in e.key and e.self_device_time_total > 0:
                 out[n] = e.self_device_time_total / 1e3 / e.count
     missing = [n for n in names if n not in out]
-    if missing:
+    if missing and need:
         fail(f"the profiler shows no device time for {missing}")
     return out
 
@@ -726,7 +884,10 @@ def profile_window(torch, label, fn, top=8):
 def counts_zero(fa):
     """Set every kernel's launch count to 0."""
     from repro_torch.kernels import fused_softmax as fs
+    from repro_torch.kernels import rope as rp
     fa.flash_attention_fwd.launches = 0
+    rp.rope_fwd.launches = 0
+    rp.rope_bwd.launches = 0
     fa.flash_attention_bwd.dq_launches = 0
     fa.flash_attention_bwd.dkv_launches = 0
     fs.fused_softmax_fwd.launches = 0
@@ -740,9 +901,37 @@ def fs_counts_read():
 
 
 def counts_read(fa):
+    from repro_torch.kernels import rope as rp
     return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
             "flash_attention_dq": fa.flash_attention_bwd.dq_launches,
-            "flash_attention_dkv": fa.flash_attention_bwd.dkv_launches}
+            "flash_attention_dkv": fa.flash_attention_bwd.dkv_launches,
+            "rope_fwd": rp.rope_fwd.launches, "rope_bwd": rp.rope_bwd.launches}
+
+
+FLASH_KEYS = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+
+
+def flash_counts(counts):
+    """The flash kernels' launches of a ``counts_read`` dict."""
+    return [counts[k] for k in FLASH_KEYS]
+
+
+def rope_launches(flash):
+    """The rope kernel's launches beside a path's ``flash`` launches where
+    every attention layer takes flash: each flash forward follows a rope
+    forward in the same function (a recompute reruns both), each flash
+    backward a rope backward."""
+    return {"rope_fwd": flash["flash_attention_fwd"],
+            "rope_bwd": flash["flash_attention_dq"]}
+
+
+def rope_short(by_path):
+    """The paths of ``by_path`` ({path: a ``counts_read`` dict}) whose rope
+    launches fall short of their flash launches: none where every rotary
+    embedding beside a flash call ran on the kernel."""
+    return {path: c for path, c in by_path.items()
+            if c["rope_fwd"] < c["flash_attention_fwd"]
+            or c["rope_bwd"] < c["flash_attention_dq"]}
 
 
 def attn_keys(cfg, seq):
@@ -825,7 +1014,7 @@ def train_path(torch, dev, smi):
           f"card {smi}")
     print(f"[train] launches over the run: {counts}")
     want = cfg.num_layers * t["steps"]
-    if any(v != want for v in counts.values()):
+    if any(v != want for v in flash_counts(counts)):
         fail(f"training launched {counts}, want {want} of each kernel")
     if not all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
                for st in steps):
@@ -1168,7 +1357,7 @@ def pipeline_path(torch, dev, smi):
     loss_err = abs(b["loss"] - ref_loss)
     want_launches = t["layers"] * t["m"] * t["steps"]
     ok_launches = all(v == want_launches for arm in out.values()
-                      for v in arm["counts"].values())
+                      for v in flash_counts(arm["counts"]))
     ok = ok_peaks and ok_bpipe and same and loss_err <= 1e-2 and ok_launches
     print(f"[check] pipelined step: 1f1b peaks {want} {ok_peaks}; bpipe under "
           f"cap {S.bpipe_cap(t['p'])} with evictions == loads > 0 {ok_bpipe}; "
@@ -1443,7 +1632,7 @@ def sliced_path(torch, dev, smi, params, batches, unsliced):
         loss_err = abs(r["loss"] - unsliced["loss"])
         norm_err = max(abs(a - b) / b for a, b in zip(r["norms"], unsliced["norms"]))
         want_launches = t["m"] * c * t["layers"] * steps
-        ok_launches = all(v == want_launches for v in r["counts"].values())
+        ok_launches = all(v == want_launches for v in flash_counts(r["counts"]))
         ok = (ok_peaks and ok_launches and loss_err <= SLICED_LOSS_TOL
               and norm_err <= SLICED_NORM_RTOL)
         swaps = ""
@@ -1490,7 +1679,7 @@ def sliced_path(torch, dev, smi, params, batches, unsliced):
     want_launches = t["m"] * LONG["seq_chunks"] * t["layers"] * LONG["steps"]
     ok = (peaks == want and math.isfinite(r["loss"])
           and all(math.isfinite(x) for x in r["norms"])
-          and all(v == want_launches for v in r["counts"].values()))
+          and all(v == want_launches for v in flash_counts(r["counts"])))
     print(f"[check] sliced {label}: peaks {peaks} vs compiled {want}; loss "
           f"{r['loss']:.6f} and grad norms finite; flash launches {want_launches} "
           f"per kernel {'ok' if ok else 'FAIL'}")
@@ -1615,7 +1804,7 @@ def stage_gain_phase(torch, dev, smi):
               f"paper's is l/p = 10 layers over t = 4 A100s; peak {peak / 2**30:.2f} "
               f"GiB; launches {counts}; card {smi}")
         want = 2 * GAIN_M * layers * 2 * GAIN_RUNS if impl == "flash" else 0
-        if any(v != want for v in counts.values()):
+        if any(v != want for v in flash_counts(counts)):
             fail(f"{label}: launches {counts}, want {want} of each flash kernel")
         out[label] = counts
     return out
@@ -1663,7 +1852,7 @@ def audit_phase(torch, dev, smi):
         want = 2 * t["m"] * t["layers"]
         ok = (not rep.missing_in_real and not rep.missing_in_sim
               and math.isfinite(rep.time_scale) and rep.time_scale > 0
-              and all(v == want for v in counts.values()))
+              and all(v == want for v in flash_counts(counts)))
         if not ok:
             fail(f"audit {kind}: missing lists, time scale or launches {counts} "
                  f"(want {want}) are wrong")
@@ -1704,7 +1893,7 @@ def plan_auto_phase(torch, dev, smi):
     want = a["steps"] * m * a["layers"]
     ok = (all(math.isfinite(x) for x in arm["losses"])
           and all(math.isfinite(v) and v > 0 for v in (costs.Tf, costs.Tb))
-          and all(v == want for v in counts.values()))
+          and all(v == want for v in flash_counts(counts)))
     if not ok:
         fail(f"--plan auto: losses, Tf/Tb or launches {counts} (want {want}) "
              f"are wrong")
@@ -1982,7 +2171,7 @@ def family_train(torch, dev, smi, fam):
           f"{peak / 2**30:.2f} GiB of {total / 2**30:.2f} GiB; card {smi}")
     print(f"[family train] {cfg.name} launches over the run: {counts}")
     want = len(attn_keys(cfg, 1)) * t["steps"]
-    if any(v != want for v in counts.values()):
+    if any(v != want for v in flash_counts(counts)):
         fail(f"{cfg.name} training launched {counts}, want {want} of each kernel")
     if not all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
                for st in steps):
@@ -2053,7 +2242,8 @@ def family_pipeline(torch, dev, smi, fam):
     swaps = b["stats"].evictions == b["stats"].loads
     same = a["loss"] == b["loss"] and a["norms"] == b["norms"]
     want = len(attn_keys(cfg, 1)) * t["m"] * t["steps"]
-    ok_launches = all(v == want for arm in out.values() for v in arm["counts"].values())
+    ok_launches = all(v == want for arm in out.values()
+                      for v in flash_counts(arm["counts"]))
     finite = all(math.isfinite(arm["loss"]) for arm in out.values())
     ok = ok_peaks and swaps and same and ok_launches and finite
     print(f"[check] {cfg.name} pipelined step: peaks 1f1b {peaks['1f1b']} bpipe "
@@ -2461,6 +2651,7 @@ def spmd_phase(torch, dev, smi):
         mb = t["batch"] // t["data"] // t["m"]
         hop = spmd_hop_bytes(mb, t["seq"], cfg.d_model, 2)
         want_counts = spmd_flash_launches(t["m"], t["p"], t["layers"], t["steps"])
+        want_counts.update(rope_launches(want_counts))
         tokens = t["batch"] * t["seq"]
         counts_by_arm, ok = {}, True
         for arm in SPMD_ARMS:
@@ -2489,7 +2680,7 @@ def spmd_phase(torch, dev, smi):
                   f"{' / '.join(f'{x:.6f}' for x in rs[0]['losses'])}; "
                   f"max_memory_allocated per rank "
                   f"{[round(r['peak'] / 2**30, 2) for r in rs]} GiB; flash launches per "
-                  f"rank {[r['counts'] for r in rs]}; per step (ops, bytes): "
+                  f"rank {[r['counts'] for r in rs]} (rope's among them); per step (ops, bytes): "
                   f"collective-permute {sorted(cp)} ({hop} B a hop), all-reduce "
                   f"{sorted(ar)}; ms in collectives per rank, last step {in_coll}; "
                   f"transport {ranks[0]['transport']} ({SPMD_TRANSPORT}); "
@@ -2497,7 +2688,8 @@ def spmd_phase(torch, dev, smi):
             print(f"[check] spmd {arm}: hops per step {n_hops} = 2(m + p - 1) - 1"
                   f"{' + 2(m + p - 1)' if arm == 'bpipe' else ''} on every rank and "
                   f"step, {hop} B each {ok_hops}; flash launches per rank "
-                  f"{want_counts} = (2, 1, 1) x (m + p - 1) x layers/p x steps "
+                  f"{want_counts} = (2, 1, 1) x (m + p - 1) x layers/p x steps, "
+                  f"rope's (2, 1) x the same "
                   f"{ok_counts}; one loss on every rank {ok_loss}")
         same = all(r["same"] for r in ranks)
         ok_ref, loss_err, rel, worst = spmd_ref_check(ranks, ref_grads)
@@ -2848,6 +3040,7 @@ def sharded_phase(torch, dev, smi):
         step_s = statistics.median(slowest)
         tokens = t["batch"] * t["seq"]
         want_counts = sharded_flash_launches(layers, t["steps"])
+        want_counts.update(rope_launches(want_counts))
         ok_counts = all(r["counts"] == want_counts for r in ranks)
         ok_loss = len({tuple(r["losses"]) for r in ranks}) == 1
         coll = sorted({(k, c["ops"][k], int(c["bytes"][k])) for r in ranks
@@ -2870,8 +3063,8 @@ def sharded_phase(torch, dev, smi):
               f"median {1e3 * step_s:.2f} ms, {tokens / step_s:.1f} tokens/s; losses "
               f"{' / '.join(f'{x:.6f}' for x in ranks[0]['losses'])}; "
               f"max_memory_allocated per rank "
-              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB; flash launches per "
-              f"rank {[r['counts'] for r in ranks]}; collectives a step (kind, ops, "
+              f"{[round(r['peak'] / 2**30, 2) for r in ranks]} GiB; flash and rope launches "
+              f"per rank {[r['counts'] for r in ranks]}; collectives a step (kind, ops, "
               f"bytes) {coll}; ms in collectives per rank, last step {in_coll}; "
               f"relocations {ranks[0]['relocations']}; the model's local-tensor moves "
               f"(q/k/v before flash among them) {ranks[0]['moves']}; transport {ranks[0]['transport']} "
@@ -2892,7 +3085,7 @@ def sharded_phase(torch, dev, smi):
               f"every element within {SHARDED_FP32_ATOL} + {SHARDED_FP32_RTOL}|want| "
               f"{'ok' if ok_small else 'FAIL'}"
               + (f", expert choices differing {small_flips}" if small_routes else "")
-              + f"; flash launches per rank "
+              + f"; flash and rope launches per rank "
               f"{want_counts} = layers x steps {ok_counts}; one loss on every rank "
               f"{ok_loss}")
     if not ok:
@@ -2956,7 +3149,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     kernels = ["flash_attention_fwd_sm90", "flash_attention_dq_sm90",
                "flash_attention_dkv_sm90", "flash_attention_fwd", "flash_attention_dq",
-               "flash_attention_dkv", "fused_softmax_fwd", "fused_softmax_bwd"]
+               "flash_attention_dkv", "fused_softmax_fwd", "fused_softmax_bwd",
+               "rope"]
     t0 = time.perf_counter()
     libs = build.build(kernels)
     print(f"[build] {len(kernels)} kernel(s) in {time.perf_counter() - t0:.1f} s")
@@ -2983,6 +3177,11 @@ def main():
         return (torch.randn((b, sq, nq, hd), generator=gen, device=dev).to(dt),
                 torch.randn((b, sk, nkv, hd), generator=gen, device=dev).to(dt),
                 torch.randn((b, sk, nkv, hd), generator=gen, device=dev).to(dt))
+
+    # -- 16. the rope kernel, first: the profiler of this process has shown no
+    # device time for it after phase 13's profiles; its own generator, so that
+    # the later phases draw what they drew before ---------------------------------
+    rope_row = rope_phase(torch, dev, torch.Generator(dev).manual_seed(0), smi)
 
     # -- 2. kernel vs plain on the card -----------------------------------------
     cases = [dict(b=b, sq=s, sk=s, nq=nq, nkv=nkv, hd=hd, dtype=dt, window=w,
@@ -3262,6 +3461,22 @@ def main():
     def at_family_shapes(name):
         return [row[name] for row in family_rows]
 
+    # every path's rope launches, read from its own run: at least its flash
+    # launches, so no rotary embedding beside a flash call left the kernel
+    keys = (*FLASH_KEYS, "rope_fwd", "rope_bwd")
+    table = {k: by_path(k) for k in keys}
+    rows = {path: {k: table[k][path] for k in keys} for path in table["rope_fwd"]}
+    short = rope_short(rows)
+    print(f"[check] rope launches by path (forward, backward): "
+          f"{ {path: (c['rope_fwd'], c['rope_bwd']) for path, c in rows.items()} }; "
+          f"each at least the path's flash forward and dq launches "
+          f"{'ok' if not short else 'FAIL: ' + str(short)}")
+    if short:
+        fail("a path ran fewer rope kernel launches than flash launches")
+    rope_row["launches"] = {k: launches(k) for k in ("rope_fwd", "rope_bwd")}
+    rope_row["launches_by_path"].update(
+        {path: {k: c[k] for k in ("rope_fwd", "rope_bwd")} for path, c in rows.items()})
+
     def at_sliced_shapes(name):
         return [{"shape": row["shape"], **row[name]} for row in sliced_times]
 
@@ -3305,7 +3520,8 @@ def main():
          "launches_by_path": {"ops.fused_softmax at (2, 104, 2048, 2048)": fs_rows[name]["launches"]},
          **({"library_computes": "dx without the scale"}
             if name == "fused_softmax_bwd" else {})}
-        for name, line in (("fused_softmax_fwd", 22), ("fused_softmax_bwd", 35))]}))
+        for name, line in (("fused_softmax_fwd", 22), ("fused_softmax_bwd", 35))]
+        + [rope_row]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

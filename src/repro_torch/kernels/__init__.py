@@ -12,6 +12,10 @@
     a warp a row kept in registers up to 4096 columns, an online block
     kernel past that) and backward (csrc/fused_softmax_bwd.cu: the row's
     sum of y dy, then dx).
+  rope.py — the rotary embedding of q and k together, one launch a
+    direction (csrc/rope.cu): each (token, i) angle's sincosf once in shared
+    memory, shared by all heads, 16-byte accesses; the backward is the
+    rotation by the negated angles.
 
 ops.py = autograd wrappers; ref.py = plain-torch oracles; build.py = nvcc
 build at first use + ctypes loading.

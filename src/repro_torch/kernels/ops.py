@@ -11,6 +11,10 @@ the CUDA backward (``fused_softmax.fused_softmax_fwd`` / ``_bwd``).
 fused op is held against (upcast, scale, mask, softmax, downcast as separate
 torch ops), the paper's exp-(7) chain.
 
+``rope_qk``: the rotary embedding of q and k in one CUDA launch a direction
+(``rope.rope_fwd`` / ``rope_bwd``), saving only the positions; each
+direction opens the profiler range "rope" (``obs.ranges``).
+
 On CPU tensors the kernels' wrappers take their plain PyTorch versions.
 """
 from __future__ import annotations
@@ -23,6 +27,8 @@ from repro_torch.kernels.flash_attention import (flash_attention_bwd,
 from repro_torch.kernels.fused_softmax import (fused_softmax_bwd,
                                                fused_softmax_fwd)
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.rope import freqs, rope_bwd, rope_fwd
+from repro_torch.obs.ranges import span
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -54,6 +60,32 @@ def flash_attention(q, k, v, causal=True, window=0, softcap=0.0, scale=None,
     keys). 0 is plain full-sequence attention."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap, scale,
                                  q_offset)
+
+
+class _RopeQK(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, positions, theta):
+        with span("rope"):
+            q, k = rope_fwd(q, k, positions, freqs(theta, q.shape[-1] // 2,
+                                                   q.device))
+        ctx.save_for_backward(positions)
+        ctx.theta = theta
+        return q, k
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_q, grad_k):
+        (positions,) = ctx.saved_tensors
+        with span("rope"):
+            dq, dk = rope_bwd(grad_q, grad_k, positions, freqs(
+                ctx.theta, grad_q.shape[-1] // 2, grad_q.device))
+        return dq, dk, None, None
+
+
+def rope_qk(q, k, positions, theta):
+    """q (b, s, nq, hd) and k (b, s, nkv, hd) rotated by positions (b, s)
+    at base ``theta``; the backward recomputes the angles."""
+    return _RopeQK.apply(q, k, positions, theta)
 
 
 class _FusedSoftmax(torch.autograd.Function):

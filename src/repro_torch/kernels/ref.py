@@ -144,3 +144,31 @@ def fused_softmax_bwd_ref(y, dy, *, scale=1.0):
     yf, dyf = y.float(), dy.float()
     dot = (yf * dyf).sum(-1, keepdim=True)
     return ((yf * (dyf - dot)) * scale).to(y.dtype)
+
+
+def _angles(positions, freq):
+    """cos and sin of positions x freq, (..., s, 1, half) fp32."""
+    ang = positions[..., :, None].float() * freq          # (..., s, half)
+    ang = ang[..., None, :]                                # (..., s, 1, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def rope_ref(x, positions, freq):
+    """The rope kernel's function on x (..., s, heads, hd): the half-split
+    rotation by positions (..., s) x freq (hd // 2,) fp32, products and sums
+    in fp32, rounded once to x's dtype."""
+    half = x.shape[-1] // 2
+    cos, sin = _angles(positions, freq)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def rope_bwd_ref(g, positions, freq):
+    """The rope kernel's backward: the gradient g of ``rope_ref``'s output
+    rotated by the negated angles, in fp32, rounded once to g's dtype."""
+    half = g.shape[-1] // 2
+    cos, sin = _angles(positions, freq)
+    g1, g2 = g[..., :half], g[..., half:]
+    out = torch.cat([g1 * cos + g2 * sin, g2 * cos - g1 * sin], dim=-1)
+    return out.to(g.dtype)

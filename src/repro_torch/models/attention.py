@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.layers import (_winit, apply_norm, cast_matmul,
-                                       init_norm, rope, scalar, softcap)
+                                       init_norm, rope_qk, scalar, softcap)
 
 NEG_INF = -0.7 * float(np.finfo(np.float32).max)
 
@@ -74,19 +74,17 @@ def _merge_heads(out, w):
     return cast_matmul(out.flatten(-2), w.reshape(n * h, d))
 
 
-def _project_q(p, x, cfg, positions):
+def _project_q(p, x):
     dt = x.dtype
     q = _heads(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"].to(dt)
     if "qnorm" in p:
         q = apply_norm(p["qnorm"], q)
-    if positions is not None:
-        q = rope(q, positions, cfg.rope_theta)
     return q
 
 
-def _project_kv(p, x, cfg, positions):
+def _project_kv(p, x):
     dt = x.dtype
     k = _heads(x, p["wk"])
     v = _heads(x, p["wv"])
@@ -95,9 +93,56 @@ def _project_kv(p, x, cfg, positions):
         v = v + p["bv"].to(dt)
     if "knorm" in p:
         k = apply_norm(p["knorm"], k)
-    if positions is not None:
-        k = rope(k, positions, cfg.rope_theta)
     return k, v
+
+
+def _project_qkv(p, x, cfg, positions):
+    """q, k and v of x, q and k normed (qk-norm) and then rotated to their
+    ``positions`` together (``rope_qk``)."""
+    q = _project_q(p, x)
+    k, v = _project_kv(p, x)
+    q, k = _rope(q, k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _rope(q, k, positions, theta):
+    """``rope_qk`` of q and k; on DTensors, over each rank's local q and k
+    and the rows of ``positions`` that go with them, so the kernel never
+    sees a DTensor. The rotation is one of each (batch, sequence, head) row
+    by its row's position, so any shard of those dims may stay: q and k
+    stay as they are where neither shards head_dim nor is a partial sum and
+    both hold the same (batch, sequence) rows, and otherwise take
+    ``_flash_placements`` (the moves, recorded as "attn_q" and "attn_kv",
+    that ``_flash`` and ``_sdpa`` would make next). The results keep the
+    placements the kernel ran on."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.rules import local_range
+    if not isinstance(q, DTensor):
+        return rope_qk(q, k, positions, theta)
+    mesh = q.device_mesh
+
+    def rows(t):
+        return [local_range(t.shape[d], mesh, t.placements, d) for d in (0, 1)]
+
+    def whole(t):  # no head_dim shard, no partial sum
+        return all(pl.is_replicate() or (pl.is_shard() and pl.dim < 3)
+                   for pl in t.placements)
+
+    if not (whole(q) and whole(k) and rows(q) == rows(k)):
+        want = _flash_placements(q, k)
+        q = rules.redistribute(q, want, "attn_q")
+        k = rules.redistribute(k, _kv_placements(want, k.shape[2], mesh),
+                               "attn_kv")
+    (lo, hi), (slo, shi) = rows(q)
+    pos = positions.full_tensor() if isinstance(positions, DTensor) else positions
+    pos = torch.broadcast_to(pos, q.shape[:2])[lo:hi, slo:shi]
+    ql, kl = rope_qk(q.to_local(), k.to_local(), pos, theta)
+    return tuple(DTensor.from_local(
+        o, mesh, t.placements, run_check=False, shape=t.shape,
+        stride=torch.empty(t.shape, device="meta").stride())
+        for o, t in ((ql, q), (kl, k)))
 
 
 def _sdpa(q, k, v, cfg, q_pos, k_pos, *, causal, window):
@@ -245,8 +290,7 @@ def attention(p, x, cfg, positions, *, kind, causal=True):
     which takes ``_sdpa`` under either arm, as in the JAX twin.
     Returns (out, (k, v)) so prefill can build the cache.
     """
-    q = _project_q(p, x, cfg, positions)
-    k, v = _project_kv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions)
     window = cfg.window_size if kind == "local_attn" else 0
     if cfg.attn_impl == "flash" and causal:
         out = _flash(q, k, v, cfg, window=window)
@@ -268,8 +312,7 @@ def attention_sliced(p, x, cfg, positions, kv_prefix, *, kind):
     Returns (out, (k_own, v_own)): the slice's own post-RoPE KV, which the
     executor keeps for later slices' prefixes.
     """
-    q = _project_q(p, x, cfg, positions)
-    k_own, v_own = _project_kv(p, x, cfg, positions)
+    q, k_own, v_own = _project_qkv(p, x, cfg, positions)
     pk, pv = kv_prefix
     dt = x.dtype
     k = torch.cat([pk.to(dt), k_own], dim=1)
@@ -290,8 +333,8 @@ def cross_attention(p, x, enc_states, cfg):
     """Decoder -> encoder attention (whisper): k/v projected from the
     encoder's states with this layer's weights, no RoPE across modalities,
     no mask."""
-    q = _project_q(p, x, cfg, None)
-    k, v = _project_kv(p, enc_states.to(x.dtype), cfg, None)
+    q = _project_q(p, x)
+    k, v = _project_kv(p, enc_states.to(x.dtype))
     b, sq = x.shape[:2]
     q_pos = torch.zeros((b, sq), dtype=torch.int32, device=x.device)
     k_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
@@ -345,8 +388,7 @@ def attention_decode(p, x, cfg, cache, pos, *, kind):
     """One-token decode: x (b, 1, d), pos an int. Returns (out, cache)."""
     b = x.shape[0]
     positions = torch.full((b, 1), int(pos), dtype=torch.int32, device=x.device)
-    q = _project_q(p, x, cfg, positions)
-    k_new, v_new = _project_kv(p, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
     cache = update_kv_cache(cache, k_new, v_new, pos)
     window = cfg.window_size if kind == "local_attn" else 0
     out = _sdpa(q, cache["k"], cache["v"], cfg, positions, cache["pos"],

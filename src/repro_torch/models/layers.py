@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import rope_ref
+from repro_torch.kernels.rope import freqs as rope_freqs
 from repro_torch.obs.ranges import span
 
 
@@ -215,19 +218,24 @@ def apply_norm(params, x):
 def rope(x, positions, theta: float):
     """x: (..., seq, heads, head_dim); positions: (..., seq) int.
 
-    Half-split rotation; the frequencies are computed in numpy float32
-    exactly as the JAX twin does, then moved to x's device.
+    Half-split rotation, the plain chain (``kernels.ref.rope_ref``); the
+    frequencies are the JAX twin's numpy float32 values, kept on x's device
+    (``kernels.rope.freqs``).
     """
-    hd = x.shape[-1]
-    half = hd // 2
-    freq = theta ** (-np.arange(0, half, dtype=np.float32) / half)
-    freq = torch.from_numpy(np.asarray(freq, np.float32)).to(x.device)
-    ang = positions[..., :, None].float() * freq          # (..., s, half)
-    ang = ang[..., None, :]                                # (..., s, 1, half)
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return rope_ref(x, positions, rope_freqs(theta, x.shape[-1] // 2, x.device))
+
+
+def rope_qk(q, k, positions, theta: float):
+    """``rope`` of q (b, s, nq, hd) and of k (b, s, nkv, hd) at the same
+    positions (b, s), on plain tensors (``attention._rope`` takes a
+    DTensor's local ones). CUDA tensors go to the kernel, one launch a
+    direction for both (``ops.rope_qk``), which raises before a launch on
+    an input it cannot take; CPU tensors take the plain chain. Both open
+    the profiler range "rope"."""
+    if q.is_cuda:
+        return ops.rope_qk(q, k, positions, theta)
+    with span("rope"):
+        return rope(q, positions, theta), rope(k, positions, theta)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ opens through it:
     around the unflatten and ``StageSplitter.merge``;
   * the weight casts of ``layers.cast_matmul`` / ``cast_bmm``: ``cast``,
     forward and backward (the backward's on the autograd thread);
+  * the rotary embedding of q and k (``layers.rope_qk``): ``rope``,
+    forward and, on the kernel's path, backward;
   * the models: ``moe_dispatch``, ``moe_combine``, ``encoder``,
     ``mlstm_chunk``, ``slstm_scan``, ``rglru_scan``.
 

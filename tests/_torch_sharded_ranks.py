@@ -165,3 +165,60 @@ def gqa_rank(rank, world, seed):
                                 for a, b in zip([got, *got_g], [want, *want_g])),
                      "scale": max(float(b.abs().max()) for b in [want, *want_g])}
     return out
+
+
+def rope_rank(rank, world, seed):
+    """``attention._rope`` on a (2, 2) mesh of 4 batch rows, 8 positions, 4
+    q heads and 2 kv heads, for each pair of q and k placements: batch rows
+    and heads sharded, the sequence and heads, and k's head_dim (as the
+    rules relocate it where the kv heads do not divide), against
+    ``rope_qk`` on the whole tensors: {case: the outputs' placements, the
+    moves recorded, the types ``rope_qk`` saw, the largest error of the
+    values and of the grads of a weighted sum, and the largest |want|}."""
+    import numpy as np
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import attention as A
+    mesh = make_host_mesh(2, 2, "cpu")
+    rng = np.random.default_rng(seed)
+    q, k, wq, wk = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                    for s in ((4, 8, 4, 16), (4, 8, 2, 16)) * 2)
+    pos = torch.from_numpy(rng.integers(0, 4096, (4, 8)).astype(np.int32))
+    theta = 10_000.0
+    cases = {"rows": ((Shard(0), Shard(2)), (Shard(0), Shard(2))),
+             "sequence": ((Shard(1), Shard(2)), (Shard(1), Shard(2))),
+             "head_dim": ((Shard(0), Shard(2)), (Shard(0), Shard(3)))}
+    seen = []
+    real = A.rope_qk
+
+    def spied(a, b, p, t):
+        seen.extend(type(x).__name__ for x in (a, b, p))
+        return real(a, b, p, t)
+
+    A.rope_qk = spied
+    out = {}
+    try:
+        whole = [t.clone().requires_grad_(True) for t in (q, k)]
+        want = real(*whole, pos, theta)
+        want_g = torch.autograd.grad((want[0] * wq).sum() + (want[1] * wk).sum(),
+                                     whole)
+        for name, (qp, kp) in cases.items():
+            rules.REDISTRIBUTIONS.clear()
+            seen.clear()
+            leaves = [distribute_tensor(t, mesh, list(pl), src_data_rank=None)
+                      .requires_grad_(True) for t, pl in ((q, qp), (k, kp))]
+            got = A._rope(*leaves, pos, theta)
+            dw = [distribute_tensor(w, mesh, list(g.placements), src_data_rank=None)
+                  for w, g in zip((wq, wk), got)]
+            got_g = torch.autograd.grad(sum((g * w).sum() for g, w in zip(got, dw)),
+                                        leaves)
+            out[name] = {
+                "placements": [[str(p) for p in g.placements] for g in got],
+                "moves": sorted({e[0] for e in rules.REDISTRIBUTIONS}),
+                "seen": sorted(set(seen)),
+                "err": max(float((a.full_tensor() - b).abs().max())
+                           for a, b in zip([*got, *got_g], [*want, *want_g])),
+                "scale": max(float(b.abs().max()) for b in [*want, *want_g])}
+    finally:
+        A.rope_qk = real
+    return out

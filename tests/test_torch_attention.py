@@ -134,3 +134,44 @@ def test_sdpa_empty_slots_and_gqa():
     got = TA._sdpa(*map(torch.from_numpy, (q, k, v)), tc, torch.from_numpy(qpos),
                    torch.from_numpy(kpos), causal=True, window=3)
     _close(got, want)
+
+
+@pytest.mark.parametrize("path", ["attention", "attention_sliced", "attention_decode"])
+@pytest.mark.parametrize("arch,kw", [("llama-65b", {"num_kv_heads": 2}),
+                                     ("qwen3-14b", {})])
+def test_one_rope_qk_call_rotates_q_and_k(monkeypatch, arch, kw, path):
+    """Every self-attention path projects q, k and v (qk-norm first) and
+    rotates q and k in one ``rope_qk`` call at its positions: the sliced
+    path at the slice's offset, decode at the one position."""
+    jc, tc = _cfgs(arch, **kw)
+    _, tp = _params(jc)
+    calls = []
+    real = TA.rope_qk
+
+    def counted(q, k, positions, theta):
+        calls.append((q.shape, k.shape, positions.clone(), theta))
+        return real(q, k, positions, theta)
+
+    monkeypatch.setattr(TA, "rope_qk", counted)
+    b, s, off = 2, 6, 4
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((b, s, jc.d_model), np.float32))
+    pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    hd, nq, nkv = tc.head_dim, tc.num_heads, tc.num_kv_heads
+    kind = _kind(tc)
+    if path == "attention":
+        TA.attention(tp, x, tc, pos, kind=kind)
+        want_pos = pos
+    elif path == "attention_sliced":
+        prefix = torch.zeros((b, off, nkv, hd))
+        TA.attention_sliced(tp, x, tc, pos + off, (prefix, prefix), kind=kind)
+        want_pos = pos + off
+    else:
+        cache = TA.init_kv_cache(tc, kind, b, 16, torch.float32, "cpu")
+        x, s = x[:, :1], 1
+        TA.attention_decode(tp, x, tc, cache, off, kind=kind)
+        want_pos = torch.full((b, 1), off, dtype=torch.int32)
+    assert len(calls) == 1
+    q_shape, k_shape, got_pos, theta = calls[0]
+    assert q_shape == (b, s, nq, hd) and k_shape == (b, s, nkv, hd)
+    assert torch.equal(got_pos, want_pos) and theta == tc.rope_theta

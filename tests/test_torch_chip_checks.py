@@ -216,3 +216,47 @@ def test_sharded_bars_catch_a_rolled_head(sharded_rehearsal):
     print(f"rolled head: loss err {loss_err:.3e}, worst leaf {worst:.3e} ({key})")
     assert not ok
     assert worst >= 10 * cs.SHARDED_RTOL
+
+
+@pytest.mark.parametrize("row", cs.ROPE_TIMED, ids=lambda r: r[0])
+def test_rope_phase_times_the_configs_shapes(row):
+    """Phase 16 times the rope pair at each model's own heads and head_dim,
+    and at granite-moe's benchmark microbatch (b 4 x 2048)."""
+    from repro_torch.configs import get_config
+    label, b, s, nq, nkv, hd = row
+    cfg = get_config(label)
+    assert (nq, nkv, hd) == (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    assert hd % 2 == 0 and hd <= 256 and s == 2048
+    if label == "granite-moe-1b-a400m":
+        import json
+        traffic = json.loads((ROOT / "bench/traffic/bpipe.p4.b4.m8.s2048.flash.json")
+                             .read_text())
+        assert (b, s) == (traffic["micro_batch"], traffic["seq_len"])
+
+
+def test_counts_read_and_zero_cover_the_rope_kernel():
+    """Every path's launch counts read rope's two counters beside the flash
+    kernels', and ``counts_zero`` sets them to 0 before a path's run."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rope as rp
+    rp.rope_fwd.launches, rp.rope_bwd.launches = 3, 2
+    assert cs.counts_read(fa)["rope_fwd"] == 3 and cs.counts_read(fa)["rope_bwd"] == 2
+    cs.counts_zero(fa)
+    got = cs.counts_read(fa)
+    assert set(got) == {*cs.FLASH_KEYS, "rope_fwd", "rope_bwd"}
+    assert set(got.values()) == {0} and cs.flash_counts(got) == [0, 0, 0]
+
+
+@pytest.mark.parametrize("rope,short", [((42, 21), False), ((84, 21), False),
+                                        ((0, 0), True), ((42, 0), True)])
+def test_rope_launch_bars(rope, short):
+    """Phase 14's ranks launch rope as often as the flash forward and dq
+    (42 and 21); a path that launches it less often than flash, as one
+    whose rotary embeddings fall back to the plain chain does, is
+    reported, and a path without attention (0 of each) is not."""
+    t = cs.SPMD
+    flash = cs.spmd_flash_launches(t["m"], t["p"], t["layers"], t["steps"])
+    assert cs.rope_launches(flash) == {"rope_fwd": 42, "rope_bwd": 21}
+    rows = {"path": {**flash, "rope_fwd": rope[0], "rope_bwd": rope[1]},
+            "xlstm": dict.fromkeys((*cs.FLASH_KEYS, "rope_fwd", "rope_bwd"), 0)}
+    assert set(cs.rope_short(rows)) == ({"path"} if short else set())

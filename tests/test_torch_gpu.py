@@ -16,12 +16,18 @@ max |want| beside the 2.5e-2 bound (the sums run over many more terms
 than the forward's). The fused softmax
 kernels take ``tests/test_kernels.py``'s: 1e-6 / 2e-2 for y, 1e-5 + 1e-4
 |want| for dx in fp32; the pipelined step the flash arm's grad tolerance.
+The rope kernel's forward equals its plain version bit for bit (the same
+fp32 products, differences and one rounding); its backward rounds once
+where the plain chain's autograd rounds each product, so it is held to a
+float64 reference at the flash kernels' bf16 bars and to no larger an
+error than the chain's.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rope as rp
 
 # b, sq, sk, nq, nkv, hd, dtype, window, softcap, q_offset
 CASES = [
@@ -337,10 +343,139 @@ def test_pipelined_step_on_the_card_matches_the_cpu(cuda):
                          generator=torch.Generator().manual_seed(1))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     spec = ScheduleSpec("1f1b", 4, 4, residency="host_offload")
+    before = (rp.rope_fwd.launches, rp.rope_bwd.launches)
     got = PipelineExecutor(cfg, spec).step(
         T.tree_map(lambda t: t.to(cuda), params), {k: v.to(cuda) for k, v in batch.items()})
+    # the rope kernel: one launch a direction a layer and microbatch
+    assert (rp.rope_fwd.launches - before[0], rp.rope_bwd.launches - before[1]) \
+        == (4 * 4, 4 * 4)
     want = PipelineExecutor(cfg, spec).step(params, batch)
     assert got.stats.offloads == got.stats.fetches > 0
     assert abs(float(got.loss) - float(want.loss)) <= 1e-5
     for a, b in zip(T.leaves(got.grads), T.leaves(want.grads)):
         torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=1e-3)
+
+
+# b, s, nq, nkv, hd, layout, positions: granite-moe's 16/8 x 64, head_dim
+# 128 and 256, decode's s 1, a sliced run's offset, int64 and per-row
+# positions, q/k left strided by a transpose, a head_dim not a multiple of 16
+# bytes' elements (scalar accesses) and views of one fused projection
+ROPE_CASES = [
+    (2, 64, 16, 8, 64, "contiguous", "arange"),
+    (1, 48, 8, 2, 128, "contiguous", "arange"),
+    (2, 16, 4, 1, 256, "contiguous", "arange"),
+    (4, 1, 16, 8, 64, "contiguous", "decode"),
+    (2, 40, 16, 8, 64, "contiguous", "offset"),
+    (2, 33, 4, 2, 64, "contiguous", "int64"),
+    (2, 24, 16, 8, 64, "transposed", "arange"),
+    (2, 24, 4, 2, 12, "contiguous", "arange"),
+    (2, 24, 4, 4, 128, "fused", "arange"),
+]
+
+
+def _rope_inputs(cuda, b, s, nq, nkv, hd, layout, positions, dtype, seed=0):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    if layout == "fused":  # q and k as views of one (b, s, 2, heads, hd) tensor
+        qk = torch.randn((b, s, 2, nq, hd), generator=gen, device=cuda).to(dt)
+        q, k = qk[:, :, 0], qk[:, :, 1, :nkv]
+    elif layout == "transposed":  # (b, heads, s, hd) seen as (b, s, heads, hd)
+        q = torch.randn((b, nq, s, hd), generator=gen, device=cuda).to(dt).transpose(1, 2)
+        k = torch.randn((b, nkv, s, hd), generator=gen, device=cuda).to(dt).transpose(1, 2)
+    else:
+        q = torch.randn((b, s, nq, hd), generator=gen, device=cuda).to(dt)
+        k = torch.randn((b, s, nkv, hd), generator=gen, device=cuda).to(dt)
+    if positions == "decode":
+        pos = torch.full((b, 1), 1234, dtype=torch.int32, device=cuda)
+    elif positions == "int64":
+        pos = torch.randint(0, 32768, (b, s), generator=gen, device=cuda)
+    else:
+        off = 1024 if positions == "offset" else 0
+        pos = (off + torch.arange(s, dtype=torch.int32, device=cuda))[None].expand(b, s)
+    return q, k, pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,nq,nkv,hd,layout,positions", ROPE_CASES)
+def test_rope_kernel_forward_is_the_plain_version(cuda, b, s, nq, nkv, hd, layout,
+                                                   positions, dtype):
+    q, k, pos = _rope_inputs(cuda, b, s, nq, nkv, hd, layout, positions, dtype)
+    for theta in (10_000.0, 1_000_000.0):
+        freq = rp.freqs(theta, hd // 2, cuda)
+        before = rp.rope_fwd.launches
+        qo, ko = rp.rope_fwd(q, k, pos, freq)
+        torch.cuda.synchronize()
+        assert rp.rope_fwd.launches == before + 1
+        assert qo.is_contiguous() and ko.is_contiguous()
+        assert torch.equal(qo, ref.rope_ref(q, pos, freq))
+        assert torch.equal(ko, ref.rope_ref(k, pos, freq))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,nq,nkv,hd,layout,positions", ROPE_CASES)
+def test_rope_kernel_backward_within_the_bars(cuda, b, s, nq, nkv, hd, layout,
+                                              positions):
+    """bf16 grads through ``ops.rope_qk`` (one launch a direction) against
+    the float64 grads of the plain chain: within the flash kernels' bf16
+    bars, no further than the chain's own bf16 grads, and equal bit for bit
+    to the kernel's plain backward (``ref.rope_bwd_ref``)."""
+    from repro_torch.kernels import ops
+    theta = 10_000.0
+    q, k, pos = _rope_inputs(cuda, b, s, nq, nkv, hd, layout, positions, "bfloat16")
+    gen = torch.Generator(cuda).manual_seed(2)
+    gq = torch.randn((b, s, nq, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    gk = torch.randn((b, s, nkv, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    freq = rp.freqs(theta, hd // 2, cuda)
+
+    def grads(f, dtype):
+        a = q.detach().to(dtype).requires_grad_(True)
+        c = k.detach().to(dtype).requires_grad_(True)
+        return torch.autograd.grad(f(a, c), (a, c), (gq.to(dtype), gk.to(dtype)))
+
+    before = (rp.rope_fwd.launches, rp.rope_bwd.launches)
+    got = grads(lambda a, c: ops.rope_qk(a, c, pos, theta), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (rp.rope_fwd.launches, rp.rope_bwd.launches) == (before[0] + 1, before[1] + 1)
+    chain = grads(lambda a, c: (ref.rope_ref(a, pos, freq), ref.rope_ref(c, pos, freq)),
+                  torch.bfloat16)
+    want = grads(lambda a, c: (ref.rope_ref(a, pos, freq), ref.rope_ref(c, pos, freq)),
+                 torch.float64)
+    for g_, c_, w_, gin in zip(got, chain, want, (gq, gk)):
+        _assert_grad_close(g_, w_, "bfloat16")
+        err, chain_err = ((x.double() - w_).abs().max() for x in (g_, c_))
+        assert err <= chain_err, (float(err), float(chain_err))
+        assert torch.equal(g_, ref.rope_bwd_ref(gin, pos, freq))
+
+
+@pytest.mark.gpu
+def test_rope_qk_takes_the_kernel_once_a_direction(cuda):
+    """``layers.rope_qk`` on CUDA tensors: one forward and one backward
+    launch for q and k together, the plain chain's values forward."""
+    from repro_torch.models import layers
+    q, k, pos = _rope_inputs(cuda, 2, 32, 16, 8, 64, "contiguous", "arange", "bfloat16")
+    q.requires_grad_(True)
+    before = (rp.rope_fwd.launches, rp.rope_bwd.launches)
+    qo, ko = layers.rope_qk(q, k, pos, 10_000.0)
+    (qo.float().sum() + ko.float().sum()).backward()
+    torch.cuda.synchronize()
+    assert (rp.rope_fwd.launches, rp.rope_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(qo, layers.rope(q.detach(), pos, 10_000.0))
+    assert torch.equal(ko, layers.rope(k, pos, 10_000.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [63, 264])
+def test_rope_kernel_rejects_head_dims_before_launch(cuda, hd):
+    q = torch.zeros((1, 4, 2, hd), device=cuda)
+    freq = torch.zeros((hd // 2,), device=cuda)
+    pos = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    before = (rp.rope_fwd.launches, rp.rope_bwd.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        rp.rope_fwd(q, q, pos, freq)
+    with pytest.raises(ValueError, match="head_dim"):
+        rp.rope_bwd(q, q, pos, freq)
+    from repro_torch.models import layers
+    with pytest.raises(ValueError, match="head_dim"):  # no plain chain on the card
+        layers.rope_qk(q, q, pos, 10_000.0)
+    assert (rp.rope_fwd.launches, rp.rope_bwd.launches) == before

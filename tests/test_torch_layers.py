@@ -61,6 +61,105 @@ def test_rope(theta):
     _close(got, want)
 
 
+# ---------------------------------------------------------------------------
+# rope_qk: q and k rotated together (one kernel launch a direction on a card)
+# ---------------------------------------------------------------------------
+# rope_qk's inputs come from a generator of their own, so that the tests
+# after them draw what they drew before.
+ROPE_RNG = np.random.default_rng(1)
+
+
+def _rope_x(*shape):
+    return torch.from_numpy(ROPE_RNG.standard_normal(shape).astype(np.float32))
+
+
+def _qk(s, hd, dtype, nq=4, nkv=2, b=2):
+    q = _rope_x(b, s, nq, hd).to(dtype)
+    k = _rope_x(b, s, nkv, hd).to(dtype)
+    pos = torch.from_numpy(ROPE_RNG.integers(0, 4096, size=(b, s)).astype(np.int32))
+    return q, k, pos
+
+
+def _rope_grads(f, q0, k0, pos, theta, gq, gk):
+    q, k = q0.clone().requires_grad_(True), k0.clone().requires_grad_(True)
+    yq, yk = f(q, k)
+    return (yq, yk, *torch.autograd.grad((yq, yk), (q, k), (gq, gk)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,s", [(64, 12), (128, 5), (256, 3), (64, 1)])
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_qk_is_two_ropes_bit_for_bit(theta, hd, s, dtype):
+    """On the CPU, rope_qk's outputs and the grads of q and k equal two
+    calls of ``rope`` (the plain chain) through autograd, bit for bit."""
+    q, k, pos = _qk(s, hd, dtype)
+    gq, gk = (_rope_x(*t.shape).to(dtype) for t in (q, k))
+    got = _rope_grads(lambda a, b: TL.rope_qk(a, b, pos, theta), q, k, pos,
+                      theta, gq, gk)
+    want = _rope_grads(lambda a, b: (TL.rope(a, pos, theta), TL.rope(b, pos, theta)),
+                       q, k, pos, theta, gq, gk)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd,s", [(64, 4), (128, 2), (256, 1)])
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_rope_qk_gradcheck(theta, hd, s):
+    """The backward of both paths in float64: the plain chain through
+    autograd (``layers.rope_qk`` on the CPU) and the kernel's autograd
+    Function with its own backward, the rotation by the negated angles
+    (``ops.rope_qk``, which takes the plain versions on the CPU)."""
+    from repro_torch.kernels import ops
+    q, k, pos = _qk(s, hd, torch.float64, nq=2, nkv=1, b=1)
+    q.requires_grad_(True)
+    k.requires_grad_(True)
+    for f in (TL.rope_qk, ops.rope_qk):
+        assert torch.autograd.gradcheck(lambda a, b: f(a, b, pos, theta), (q, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rope_kernel_backward_plain_version_is_autograds(dtype):
+    """``ref.rope_bwd_ref`` (the rope kernel's backward, one rounding)
+    equals autograd through the plain chain wherever autograd rounds once
+    too: in fp32 and float64, bit for bit."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rope import freqs
+    x = _rope_x(2, 7, 3, 64).to(dtype).requires_grad_(True)
+    pos = torch.from_numpy(ROPE_RNG.integers(0, 4096, size=(2, 7)))
+    g = _rope_x(2, 7, 3, 64).to(dtype)
+    f = freqs(10_000.0, 32, "cpu")
+    (want,) = torch.autograd.grad(ref.rope_ref(x, pos, f), x, g)
+    assert torch.equal(ref.rope_bwd_ref(g, pos, f), want)
+
+
+def test_rope_frequencies_are_made_once(monkeypatch):
+    """The frequency table is built once per (theta, half, device): rope_qk
+    converts no numpy array after its first call, forward or backward, and
+    launches no kernel on the CPU."""
+    from repro_torch.kernels import rope as R
+    theta = 123_457.0
+    for key in [k for k in R._FREQS if k[0] == theta]:
+        del R._FREQS[key]
+    q, k, pos = _qk(6, 64, torch.float32)
+    q.requires_grad_(True)
+    made = []
+    real = torch.from_numpy
+    monkeypatch.setattr(torch, "from_numpy", lambda a: made.append(a) or real(a))
+    launches = (R.rope_fwd.launches, R.rope_bwd.launches)
+    for _ in range(3):
+        yq, yk = TL.rope_qk(q, k, pos, theta)
+        (yq.sum() + yk.sum()).backward()
+        TL.rope(k, pos, theta)
+    assert len(made) == 1
+    table = R.freqs(theta, 32, "cpu")
+    assert table is R.freqs(theta, 32, torch.device("cpu"))
+    want = theta ** (-np.arange(0, 32, dtype=np.float32) / 32)
+    assert table.dtype == torch.float32 and np.array_equal(table.numpy(), want)
+    R.freqs(theta, 64, "cpu")  # another half: another table
+    assert len(made) == 2
+    assert (R.rope_fwd.launches, R.rope_bwd.launches) == launches
+
+
 # The MLP's outputs reach |y| of about 2.3 through a 512-long sum, where
 # fp32's rounding floor is about 1e-6: JAX and the port each land about
 # 1.0e-6 from a float64 evaluation, so 1e-6 between the two is a coin toss

@@ -108,6 +108,10 @@ def test_model_and_cast_ranges_nest_in_instructions(name):
         assert _within(e, fwd + by["pipe.B"]), e.name
     for e in by["pipe.grad_sum"]:
         assert _within(e, by["pipe.B"])
+    # rope: one range a layer forward, q and k together (the plain chain on
+    # the CPU: no backward range)
+    assert by["rope"] and all(_within(e, fwd) for e in by["rope"])
+    assert len(by["rope"]) == len(fwd) * (LAYERS // 4)
     steps = by["pipe.step"]
     for e in host:
         if e.name.startswith("pipe.") and e.name != "pipe.step":

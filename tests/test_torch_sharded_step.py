@@ -167,6 +167,24 @@ def test_gqa_q_heads_over_ranks_match_the_whole_attention():
             assert res["err"] <= 1e-6 * max(1.0, res["scale"]), (name, res)
 
 
+def test_rope_on_dtensors_runs_on_local_rows():
+    """``attention._rope`` hands ``rope_qk`` plain local tensors and the
+    rows of the positions that go with them: q and k keep batch, sequence
+    and head shards as they are, and a head_dim shard of k takes the kv
+    placements of ``_flash``; values and grads within 1e-6 of rope_qk on
+    the whole tensors."""
+    got = run_ranks(R.rope_rank, 4, args=(0,), timeout_s=90, staged_key="CPU")
+    want = {"rows": (["S(0)", "S(2)"], []), "sequence": (["S(1)", "S(2)"], []),
+            "head_dim": (["S(0)", "S(2)"], ["attn_kv"])}
+    for r in got:
+        assert set(r) == set(want)
+        for name, res in r.items():
+            assert res["placements"] == [want[name][0]] * 2, name
+            assert res["moves"] == want[name][1], name
+            assert res["seen"] == ["Tensor"], name
+            assert res["err"] <= 1e-6 * max(1.0, res["scale"]), (name, res)
+
+
 def test_moe_constrained_sharded_step_matches_jax():
     a, i, over = MOE
     over = tuple(over.items())
