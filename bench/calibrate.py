@@ -7,9 +7,10 @@ cell's own size, in one process:
 
 For each seed it builds the cell as ``run.py`` does (params, batches, the
 program's executor, the warm-up steps), runs two more steps and reads the
-numbers of ``check.py`` as a run of two window steps reads them: the
-lower readings. On the first ``--control`` seeds it reads the control
-(the reference with float8 products, ``faults.control``) in the program's
+numbers of ``check.py`` as a run of two window steps reads them, against
+the plain reference of the configuration's model module: the lower
+readings. On the first ``--control`` seeds it reads the control (that
+reference with float8 products, ``faults.control``) in the program's
 place; on the first ``--faults`` seeds the planted faults: the previous
 step's result returned (``stale``), half of the batch left out
 (``half_batch``), and, from the same pass as the sound run, one leaf's
@@ -60,14 +61,14 @@ def main(argv=None) -> int:
     cell = spec.load_cell(args.workload, Path(args.root))
     import torch
 
-    from bench import check, faults, inputs, reference
+    from bench import check, faults
     from bench.run import build
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         print("calibrate: no CUDA device", file=sys.stderr)
         return 2
-    b = int(cell.traffic["micro_batch"])
+    b, mod = int(cell.traffic["micro_batch"]), cell.module
     warm = int(cell.traffic["warmup_steps"])
     out = open(args.out, "a") if args.out else None
 
@@ -101,9 +102,10 @@ def main(argv=None) -> int:
         loss_late, grads = float(res.loss), res.grads
         del res
         free()
-        want_early = reference.loss_only(cfg, params, early, b)
-        numbers, stats = check.compare(reference.leaf_grads(cfg, params, late, b),
-                                       lambda name: inputs.leaf_of(grads, name), loss_late)
+        want_early = mod.loss_only(cfg, params, early, b)
+        numbers, stats = check.compare(mod.leaf_grads(cfg, params, late, b),
+                                       lambda name: mod.leaf_of(grads, name), loss_late,
+                                       mod.leaf_names(cfg))
         numbers["loss_rel"] = max(numbers["loss_rel"], check.loss_rel(loss_early, want_early))
         worst = {k: "/".join(stats.worst(k)[1]) for k in ("grad_norm_gap", "grad_diff")}
         emit(seed, "program", numbers, t0, worst=worst)
@@ -120,10 +122,10 @@ def main(argv=None) -> int:
         if n < args.control:
             t1 = time.perf_counter()
             nums, _ = check.compare(*check.lockstep(
-                reference.leaf_grads(cfg, params, late, b),
-                reference.leaf_grads(cfg, params, late, b, fp8=True)))
+                mod.leaf_grads(cfg, params, late, b),
+                mod.leaf_grads(cfg, params, late, b, fp8=True)), mod.leaf_names(cfg))
             nums["loss_rel"] = max(nums["loss_rel"], check.loss_rel(
-                reference.loss_only(cfg, params, early, b, fp8=True), want_early))
+                mod.loss_only(cfg, params, early, b, fp8=True), want_early))
             emit(seed, "control", nums, t1)
         if n < args.faults:
             for kind, wrap in (("stale", faults.stale(cell)),
@@ -136,8 +138,9 @@ def main(argv=None) -> int:
                 got_loss, grads = float(res.loss), res.grads
                 del res, step
                 free()
-                nums, _ = check.compare(reference.leaf_grads(cfg, params, late, b),
-                                        lambda name: inputs.leaf_of(grads, name), got_loss)
+                nums, _ = check.compare(mod.leaf_grads(cfg, params, late, b),
+                                        lambda name: mod.leaf_of(grads, name), got_loss,
+                                        mod.leaf_names(cfg))
                 emit(seed, kind, nums, t1)
                 del grads
                 free()

@@ -4,7 +4,7 @@ A step's answer is its loss and the gradient of every parameter. Each
 stacked parameter is compared a layer at a time: "leaf" below means one
 layer's slice of a parameter, or an unstacked parameter (the embedding
 table, an untied head, the final norm). Against the plain reference
-(``reference.leaf_grads``) three numbers are read:
+(the model module's ``leaf_grads``) three numbers are read:
 
   * ``loss_rel``: |loss - reference loss| / |reference loss|, the largest
     over the steps checked;
@@ -65,19 +65,31 @@ class LeafStats:
 
 def compare(ref: Iterable[Tuple[LeafName, torch.Tensor]],
             candidate: Callable[[LeafName], torch.Tensor],
-            cand_loss: float) -> Tuple[Dict[str, float], LeafStats]:
-    """Runs the reference generator ``ref`` (``reference.leaf_grads``) and
-    holds each leaf of it against ``candidate(name)``. Returns the numbers
-    ``loss_rel``, ``grad_norm_gap``, ``grad_diff`` and the per-leaf stats."""
+            cand_loss: float, names: Optional[Iterable[LeafName]] = None
+            ) -> Tuple[Dict[str, float], LeafStats]:
+    """Runs the reference generator ``ref`` (a model module's
+    ``leaf_grads``) and holds each leaf of it against ``candidate(name)``.
+    Returns the numbers ``loss_rel``, ``grad_norm_gap``, ``grad_diff`` and
+    the per-leaf stats. With ``names`` (the module's ``leaf_names``) it
+    raises ValueError unless the reference yields each of them once and
+    nothing else: a leaf it skips would go unchecked."""
     it = iter(ref)
     name, ref_loss = next(it)
     if name != ("loss",):
         raise ValueError(f"the reference yielded {name} before its loss")
     ref_loss = float(ref_loss)
     stats = LeafStats()
+    yielded = 0
     for name, r in it:
         stats.add(name, candidate(name), r)
+        yielded += 1
         del r
+    if names is not None:
+        gap = sorted("/".join(n) for n in set(names) ^ set(stats.rows))
+        if gap or yielded != len(stats.rows):
+            raise ValueError(f"the reference's leaves are not leaf_names: {len(gap)} "
+                             f"differ ({', '.join(gap[:6])}), "
+                             f"{yielded - len(stats.rows)} yielded twice")
     out = {"loss_rel": loss_rel(cand_loss, ref_loss)}
     out["grad_norm_gap"], _ = stats.worst("grad_norm_gap")
     out["grad_diff"], _ = stats.worst("grad_diff")

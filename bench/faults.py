@@ -45,13 +45,13 @@ def half_batch(cell):
 
 def negated_leaf(cell, name: Tuple[str, ...]):
     """An answer altered where it is produced: the gradient of leaf
-    ``name`` (``inputs.leaf_names``) negated."""
-    from bench import inputs
+    ``name`` (the model module's ``leaf_names``) negated."""
+    leaf_of = cell.module.leaf_of
 
     def wrap(ex):
         def step(params, batch):
             res = ex.step(params, batch)
-            inputs.leaf_of(res.grads, name).neg_()
+            leaf_of(res.grads, name).neg_()
             return res
         return step
     return wrap
@@ -59,19 +59,19 @@ def negated_leaf(cell, name: Tuple[str, ...]):
 
 def control(cell):
     """The plain reference in the program's place, its products in float8
-    (``reference.leaf_grads(fp8=True)``): the loss and the gradients in
-    the program's layout."""
-    from bench import inputs, reference
+    (the model module's ``leaf_grads(fp8=True)``): the loss and the
+    gradients in the program's layout."""
+    mod = cell.module
 
     def wrap(ex):
         b = int(cell.traffic["micro_batch"])
 
         def step(params, batch):
             grads = _zeros_like(params)
-            it = reference.leaf_grads(ex.cfg, params, batch, b, fp8=True)
+            it = mod.leaf_grads(ex.cfg, params, batch, b, fp8=True)
             _, loss = next(it)
             for name, g in it:
-                inputs.leaf_of(grads, name).copy_(g)
+                mod.leaf_of(grads, name).copy_(g)
             return types.SimpleNamespace(loss=loss.float(), grads=grads, stats=None)
         return step
     return wrap

@@ -2,8 +2,9 @@
 batches. Both sides of the check (the program and the plain reference) get
 the same tensors.
 
-Weights: fp32, in the program's parameter layout (``embed``, ``blocks``
-stacked by pattern position, ``final_norm``), drawn on the device in one
+Weights: fp32, in the program's parameter layout (a model module's
+``param_shapes``; by default ``embed``, ``blocks`` stacked by pattern
+position, ``final_norm``), drawn on the device in one
 ``randn`` call into a flat buffer that every leaf is a view of, then each
 leaf scaled in place: a weight by 1 / sqrt(fan-in), as the program's own
 init draws them; a norm's scale 1 + 0.1 n and a bias 0.1 n, so that a path
@@ -103,9 +104,10 @@ def numel(shape) -> int:
     return out
 
 
-def make_params(cfg, seed: int, device) -> Dict[str, Any]:
-    """fp32 params of ``cfg`` on ``device`` from ``seed``."""
-    leaves = list(_walk(param_shapes(cfg)))
+def make_params(shapes: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
+    """fp32 params of the layout ``shapes`` (a model module's
+    ``param_shapes(cfg)``) on ``device`` from ``seed``."""
+    leaves = list(_walk(shapes))
     total = sum(numel(shape) for _, (shape, _) in leaves)
     flat = torch.randn(total, generator=generator(seed, device, 0),
                        device=device, dtype=torch.float32)

@@ -13,7 +13,8 @@ block: x + attention(norm1(x)), then x + ffn(norm2(x)).
   * norms: LayerNorm (population variance) or RMSNorm, eps 1e-6, in fp32;
   * attention: q, k, v projections (+ biases), half-split RoPE over
     positions 0..s-1, GQA (q head n reads kv head n // (nq / nkv)), causal
-    softmax of q k^T / sqrt(hd), the heads merged through ``wo``;
+    softmax of q k^T / sqrt(hd) (over the ``window`` latest keys where a
+    layer is given one), the heads merged through ``wo``;
   * dense FFN: GELU (tanh approximation) or SwiGLU;
   * MoE FFN: fp32 router softmax, top-k, the gates renormalised; each
     (token, choice) pair of a row, in token-major order, takes the next
@@ -30,6 +31,11 @@ card for the largest configuration, so the gradients are computed a layer
 at a time: one forward pass keeps each layer's input for every
 microbatch, then from the top down each layer is run again with autograd
 and differentiated, its gradients handed out (``leaf_grads``) and freed.
+``layers_loss`` and ``layers_grads`` do so over any list of layers, each a
+row of a stacked parameter tree and the function that applies it, for a
+model module (``bench/spec.py``) whose layout or layers differ from the
+default's (``stacked_layers``: every layer a global-attention ``layer`` in
+``blocks/pos0``).
 
 ``fp8=True`` is the control: the same computation with every matrix
 product's operands rounded to float8 e4m3 and their gradients to e5m2, each
@@ -40,13 +46,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 EPS = 1e-6
 LeafName = Tuple[str, ...]
+Layer = Tuple[Dict[str, Any], int, Callable]   # (stacked params, row, layer fn)
 
 
 @contextlib.contextmanager
@@ -124,7 +131,9 @@ def rope(x, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(p, h, cfg, nm: Numerics):
+def attention(p, h, cfg, nm: Numerics, window: int = 0):
+    """Causal self attention; with ``window`` each query keeps only the
+    ``window`` latest keys, itself included (i - window < j <= i)."""
     b, s, d = h.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = nm.mm(h, p["wq"].reshape(d, nq * hd)).view(b, s, nq, hd)
@@ -138,6 +147,8 @@ def attention(p, h, cfg, nm: Numerics):
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))          # (b, nq, s, hd)
     scores = nm.op(q) @ nm.op(k).transpose(-1, -2) / math.sqrt(hd)
     keep = torch.ones(s, s, dtype=torch.bool, device=h.device).tril()
+    if window:
+        keep = keep.triu(1 - window)
     probs = torch.softmax(scores.masked_fill(~keep, float("-inf")), dim=-1)
     out = (nm.op(probs) @ nm.op(v)).transpose(1, 2).reshape(b, s, nq * hd)
     return nm.mm(out, p["wo"].reshape(nq * hd, d))
@@ -185,10 +196,10 @@ def moe(p, h, cfg, nm: Numerics):
     return y, aux
 
 
-def layer(p, x, cfg, nm: Numerics):
-    """One block. Returns (x, aux): aux the MoE's load-balance loss, None
-    for a dense FFN."""
-    x = x + attention(p["mixer"], norm(p["norm1"], x), cfg, nm)
+def layer(p, x, cfg, nm: Numerics, window: int = 0):
+    """One block, its attention over ``window`` keys where given. Returns
+    (x, aux): aux the MoE's load-balance loss, None for a dense FFN."""
+    x = x + attention(p["mixer"], norm(p["norm1"], x), cfg, nm, window)
     if cfg.moe is not None:
         y, aux = moe(p["ffn"], norm(p["norm2"], x), cfg, nm)
         return x + y, aux
@@ -232,12 +243,19 @@ def _unflatten(pairs):
     return out
 
 
-def _layer_params(params, l: int):
-    """Layer ``l``'s params as leaf tensors that need a gradient (views of
-    the given params, no copy): {path: tensor} and the nested dict."""
-    flat = {path: t[l].detach().requires_grad_(True)
-            for path, t in _tree_leaves(params["blocks"]["pos0"])}
+def _layer_params(stack, row: int):
+    """Row ``row`` of the stacked params ``stack`` as leaf tensors that need
+    a gradient (views of the given params, no copy): {path: tensor} and the
+    nested dict."""
+    flat = {path: t[row].detach().requires_grad_(True)
+            for path, t in _tree_leaves(stack)}
     return flat, _unflatten(flat.items())
+
+
+def stacked_layers(cfg, params) -> List[Layer]:
+    """The default layout's layers: layer l is row l of ``blocks/pos0``,
+    each a global-attention ``layer``."""
+    return [(params["blocks"]["pos0"], l, layer) for l in range(cfg.num_layers)]
 
 
 def _micro(batch, b: int) -> List[Dict[str, torch.Tensor]]:
@@ -249,15 +267,30 @@ def _micro(batch, b: int) -> List[Dict[str, torch.Tensor]]:
 
 def loss_only(cfg, params, batch, micro_batch: int, fp8: bool = False) -> float:
     """The step's loss, no gradients."""
+    return layers_loss(cfg, params, stacked_layers(cfg, params), batch, micro_batch, fp8)
+
+
+def leaf_grads(cfg, params, batch, micro_batch: int, fp8: bool = False
+               ) -> Iterator[Tuple[LeafName, torch.Tensor]]:
+    """``layers_grads`` over the default layout (``stacked_layers``); names
+    as ``inputs.leaf_names``."""
+    return layers_grads(cfg, params, stacked_layers(cfg, params), batch, micro_batch, fp8)
+
+
+def layers_loss(cfg, params, layers: List[Layer], batch, micro_batch: int,
+                fp8: bool = False) -> float:
+    """The step's loss, no gradients, through ``layers`` in depth order:
+    (stacked params, row, run), run(layer params, x, cfg, numerics) ->
+    (x, aux), as ``layer``."""
     nm = Numerics(fp8)
     micros = _micro(batch, micro_batch)
     total = 0.0
     with torch.no_grad(), fp32_exact():
         for mb in micros:
             x = embed(params, mb["tokens"], cfg)
-            for l in range(cfg.num_layers):
-                _, lp = _layer_params(params, l)
-                x, aux = layer(lp, x, cfg, nm)
+            for stack, row, run in layers:
+                _, lp = _layer_params(stack, row)
+                x, aux = run(lp, x, cfg, nm)
                 if aux is not None:
                     total += float(aux)
             total += float(head_loss(params["final_norm"], _head_weight(params, cfg),
@@ -265,13 +298,13 @@ def loss_only(cfg, params, batch, micro_batch: int, fp8: bool = False) -> float:
     return total / len(micros)
 
 
-def leaf_grads(cfg, params, batch, micro_batch: int, fp8: bool = False
-               ) -> Iterator[Tuple[LeafName, torch.Tensor]]:
+def layers_grads(cfg, params, layers: List[Layer], batch, micro_batch: int,
+                 fp8: bool = False) -> Iterator[Tuple[LeafName, torch.Tensor]]:
     """Yields ("loss",), loss first, then (leaf name, fp32 gradient) for
     every compared leaf, from the top of the model down: the final norm,
-    the head (an untied one), each layer from the last (its leaves in
-    sorted path order), the embedding table last. Names as
-    ``inputs.leaf_names``."""
+    the head (an untied one), each layer of ``layers`` (as ``layers_loss``)
+    from the last, as ("layer<l>", ...) with its leaves in sorted path
+    order, the embedding table last."""
     nm = Numerics(fp8)
     micros = _micro(batch, micro_batch)
     m = len(micros)
@@ -283,10 +316,10 @@ def leaf_grads(cfg, params, batch, micro_batch: int, fp8: bool = False
             for mb in micros:
                 x = embed(params, mb["tokens"], cfg)
                 ins = []
-                for l in range(cfg.num_layers):
+                for stack, row, run in layers:
                     ins.append(x)
-                    _, lp = _layer_params(params, l)
-                    x, aux = layer(lp, x, cfg, nm)
+                    _, lp = _layer_params(stack, row)
+                    x, aux = run(lp, x, cfg, nm)
                     if aux is not None:
                         loss += float(aux) / m
                 ins.append(x)
@@ -311,11 +344,12 @@ def leaf_grads(cfg, params, batch, micro_batch: int, fp8: bool = False
             yield ("embed", "unembed"), w.grad
         del w
         # the layers, from the top
-        for l in reversed(range(cfg.num_layers)):
-            flat, lp = _layer_params(params, l)
+        for l in reversed(range(len(layers))):
+            stack, row, run = layers[l]
+            flat, lp = _layer_params(stack, row)
             for j in range(m):
                 x = xs[j].pop().requires_grad_(True)
-                y, aux = layer(lp, x, cfg, nm)
+                y, aux = run(lp, x, cfg, nm)
                 outs, grads = [y], [cot[j]]
                 if aux is not None:
                     outs.append(aux)

@@ -7,7 +7,8 @@ from the root of a checkout. The cell's configuration, traffic mix,
 limits and per-layer metrics are found by name (``bench/spec.py``).
 
 Set-up (``setup_s``, from process start to the first timed step): the
-program's ``ModelConfig`` from the configuration file, fp32 params on the
+program's ``ModelConfig`` from the configuration file, fp32 params in the
+layout of the configuration's model module (``bench/spec.py``) on the
 card and ``distinct_batches`` token batches from ``--seed``
 (``bench/inputs.py``), ``repro_torch.pipeline.PipelineExecutor`` with the
 traffic's schedule, and ``warmup_steps`` steps at the cell's own shapes,
@@ -19,9 +20,9 @@ batch and ending in ``torch.cuda.synchronize()``, until ``--seconds`` have
 passed; the step that crosses the deadline is finished and counted. With
 ``--trace 0`` it reports the cell's end-to-end metrics: ``tokens_per_s``
 (tokens of all steps over the time to the end of the last one), ``mfu``
-(that rate times ``flops.flops_per_token`` over the bf16 peak),
-``peak_mem_gib`` (``max_memory_allocated`` over the window, reset at its
-start) and ``setup_s``. With ``--trace 1`` the window is profiled
+(that rate times the model module's ``flops_per_token`` over the bf16
+peak), ``peak_mem_gib`` (``max_memory_allocated`` over the window, reset at
+its start) and ``setup_s``. With ``--trace 1`` the window is profiled
 (``torch.profiler``) for at least one step and ``TRACE_SECONDS`` or
 ``--seconds`` if that is less, and it reports the cell's per-layer
 metrics, each read by ``bench/metrics/<name>.py``, with the device's busy
@@ -29,10 +30,11 @@ and traced seconds and a breakdown.
 
 After the window, with the program's stash freed and the peak read, the
 last step's loss and gradients and one earlier step's loss (drawn from the
-seed) are held against the plain reference (``bench/reference.py``,
-``bench/check.py``); every number of ``check.NUMBERS`` is printed beside
-its limit (null where the cell sets none) on standard error and, last, in
-the result line.
+seed) are held against the plain reference (the model module's
+``leaf_grads`` and ``loss_only``, ``bench/check.py``), every leaf of its
+``leaf_names`` (a reference that skips one raises); every number of
+``check.NUMBERS`` is printed beside its limit (null where the cell sets
+none) on standard error and, last, in the result line.
 """
 from __future__ import annotations
 
@@ -66,6 +68,7 @@ class Ctx:
     """What a per-layer metric's ``read`` gets."""
     model: Dict[str, Any]      # the configuration file's model object
     traffic: Dict[str, Any]
+    module: Any                # the configuration's model module
     trace: Any                 # bench.trace.Trace of the traced window
     stats: Any                 # the last traced step's StoreStats
     tokens: int                # tokens of the traced steps
@@ -127,7 +130,7 @@ def build(cell, seed: int, dev):
     from bench import inputs, spec
     tr = cell.traffic
     cfg = dataclasses.replace(spec.model_config(cell.config), attn_impl=tr["attn_impl"])
-    params = inputs.make_params(cfg, seed, dev)
+    params = inputs.make_params(cell.module.param_shapes(cfg), seed, dev)
     batches = inputs.make_batches(tr, cfg.vocab_size, seed, dev)
     return cfg, params, batches, executor(cfg, tr)
 
@@ -140,14 +143,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     place of ``ex.step`` (a planted fault). Returns the result object."""
     import torch
 
-    from bench import check, flops, inputs, reference, spec
+    from bench import check, flops, spec
 
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.init()
     t_init = time.monotonic()
     tr = cell.traffic
-    model = cell.config["model"]
+    model, mod = cell.config["model"], cell.module
     b, m, s = int(tr["micro_batch"]), int(tr["microbatches"]), int(tr["seq_len"])
     cfg, params, batches, ex = build(cell, seed, dev)
     step = step_wrapper(ex) if step_wrapper is not None else ex.step
@@ -176,7 +179,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         t_read = time.perf_counter()
         tr_ = Trace(prof)
         del prof
-        ctx = Ctx(model=model, traffic=tr, trace=tr_, stats=res.stats,
+        ctx = Ctx(model=model, traffic=tr, module=mod, trace=tr_, stats=res.stats,
                   tokens=len(ends) * tokens_a_step)
         for metric in cell.per_layer:
             v = spec.metric_reader(metric["name"])(ctx)
@@ -194,7 +197,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
     if not trace:
         rate = steps * tokens_a_step / elapsed
         e2e = {"tokens_per_s": rate,
-               "mfu": 100.0 * rate * flops.flops_per_token(model, s) / flops.PEAK_BF16,
+               "mfu": 100.0 * rate * mod.flops_per_token(model, s) / flops.PEAK_BF16,
                "peak_mem_gib": peak / GIB, "setup_s": setup_s}
         for metric in cell.end_to_end:
             metrics[metric["name"]] = {"value": e2e[metric["name"]], "unit": metric["unit"]}
@@ -213,11 +216,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device="cuda",
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
     numbers, stats = check.compare(
-        reference.leaf_grads(cfg, params, batches[last], b),
-        lambda name: inputs.leaf_of(grads, name), last_loss)
+        mod.leaf_grads(cfg, params, batches[last], b),
+        lambda name: mod.leaf_of(grads, name), last_loss, mod.leaf_names(cfg))
     if steps > 1:  # one earlier step's loss, drawn from the seed
         i = random.Random(seed).randrange(steps - 1)
-        want = reference.loss_only(cfg, params, batches[(warm + i) % len(batches)], b)
+        want = mod.loss_only(cfg, params, batches[(warm + i) % len(batches)], b)
         numbers["loss_rel"] = max(numbers["loss_rel"], check.loss_rel(loss_vals[i], want))
     worst = {k: stats.worst(k)[1] for k in ("grad_norm_gap", "grad_diff")}
     log(f"[bench] check in {time.perf_counter() - t_check:.1f} s over "

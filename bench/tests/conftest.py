@@ -1,7 +1,9 @@
 """Tiny cells for the benchmark's CPU tests: the shipped cells' files with
 the widths, depth, vocabulary and sequence cut so that the program runs in
 a second on the CPU, and limits of their own, set from CPU readings at
-these sizes (bf16 program against the fp32 reference). Besides them, two
+these sizes (bf16 program against the fp32 reference). A configuration's
+model module may bring its own (``TINY_MODEL``, ``TINY_LIMITS``); the
+dicts here hold those of configurations whose module has none. Besides them, two
 dense cells of gpt3-96b's kind (GELU, LayerNorm, qkv bias, an untied
 head; ``dense.flash`` and ``dense.recompute``, the two attention arms),
 which keep the reference's dense path and the control tested while no
@@ -54,15 +56,17 @@ def dense_cell(name: str) -> spec.Cell:
     return cell
 
 
-def tiny_cell(name: str) -> spec.Cell:
+def tiny_cell(name: str, root: Path = spec.ROOT) -> spec.Cell:
+    """The cell ``name`` of ``root``'s files at its tiny size."""
     if name in DENSE_ARMS:
         return dense_cell(name)
-    cell = spec.load_cell(name)
+    cell = spec.load_cell(name, root)
     cfg_name = cell.config["name"]
     cell.config = copy.deepcopy(cell.config)
-    cell.config["model"].update(TINY_MODEL[cfg_name])
+    cell.config["model"].update(getattr(cell.module, "TINY_MODEL", None)
+                                or TINY_MODEL[cfg_name])
     cell.traffic = dict(cell.traffic, seq_len=32, distinct_batches=8)
-    cell.limits = dict(TINY_LIMITS[cfg_name])
+    cell.limits = dict(getattr(cell.module, "TINY_LIMITS", None) or TINY_LIMITS[cfg_name])
     return cell
 
 

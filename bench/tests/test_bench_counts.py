@@ -23,8 +23,8 @@ class _Trace:
 
 
 def _read(name, trace):
-    return spec.metric_reader(name)(run.Ctx(model={}, traffic={}, trace=trace, stats=None,
-                                            tokens=0))
+    return spec.metric_reader(name)(run.Ctx(model={}, traffic={}, module=None, trace=trace,
+                                            stats=None, tokens=0))
 
 
 STEPS = [_event("pipe.step", 10.0, 45.0), _event("pipe.step", 50.0, 95.0)]

@@ -7,7 +7,7 @@ import shutil
 
 import pytest
 
-from bench import check, flops, inputs, spec
+from bench import check, spec
 
 BENCH = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -16,40 +16,48 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 WIDTH = re.compile(r"(hidden|intermediate|latent|state|proj|head|_dim$|_rank$|d_model|d_ff|top_k)")
 
 
-def test_benchmark_json_holds_the_contract_keys():
-    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+def check_benchmark_json(bench):
+    """``bench`` (a BENCHMARK.json) keeps the contract's keys and limits."""
+    cells = [w["name"] for w in bench["workloads"]]
+    assert set(bench) == {"command", "paths", "run_seconds", "configs", "workloads",
                           "end_to_end", "per_layer"}
-    assert BENCH["paths"] == ["bench"] and BENCH["command"] == ["python3", "bench/run.py"]
-    assert 1 <= BENCH["run_seconds"] <= 51
-    names = [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
+    assert bench["paths"] == ["bench"] and bench["command"] == ["python3", "bench/run.py"]
+    assert 1 <= bench["run_seconds"] <= 51
+    names = [m["name"] for m in bench["end_to_end"] + bench["per_layer"]]
     assert len(names) == len(set(names)) and all(NAME.match(n) for n in names)
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    e2e = {m["name"] for m in bench["end_to_end"]}
     assert {"tokens_per_s", "mfu", "peak_mem_gib", "setup_s"} == e2e
-    for m in BENCH["end_to_end"]:
+    for m in bench["end_to_end"]:
         assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
-    for m in BENCH["per_layer"]:
+    for m in bench["per_layer"]:
         assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
-        assert m["moves"] in e2e and set(m["workloads"]) <= set(CELLS)
+        assert m["moves"] in e2e and set(m["workloads"]) <= set(cells)
         assert UNIT.match(m["unit"]) and 1 <= len(m["layer"]) <= 200
-    pairs = [(w["config"], w["traffic"]) for w in BENCH["workloads"]]
-    assert len(pairs) == len(set(pairs)) and len(CELLS) == len(set(CELLS))
-    for w in BENCH["workloads"]:
+    pairs = [(w["config"], w["traffic"]) for w in bench["workloads"]]
+    assert len(pairs) == len(set(pairs)) and len(cells) == len(set(cells))
+    for w in bench["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and w["chips"] == 1
         assert 1 <= len(w["why"]) <= 200 and "\n" not in w["why"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_cell_files_load(cell):
-    c = spec.load_cell(cell)
+def test_benchmark_json_holds_the_contract_keys():
+    check_benchmark_json(BENCH)
+
+
+def check_cell_files(cell, root=spec.ROOT):
+    """The cell ``cell`` of ``root``'s files loads, its limits lie between
+    their readings, and its configuration's model module lays it out and
+    counts its FLOPs."""
+    c = spec.load_cell(cell, root)
     cfg = spec.model_config(c.config)
     assert cfg.num_layers == c.config["model"]["num_layers"]
     for key in ("schedule", "p", "micro_batch", "microbatches", "seq_len", "attn_impl",
                 "remat", "warmup_steps", "distinct_batches"):
         assert key in c.traffic, key
-    body = json.loads((spec.BENCH / "workloads" / f"{cell}.json").read_text())
+    body = json.loads((root / "bench" / "workloads" / f"{cell}.json").read_text())
     skipped = body.get("not_compared", {})
     assert set(c.limits) | set(skipped) == set(check.NUMBERS) and c.limits
     assert not set(c.limits) & set(skipped)
@@ -57,11 +65,16 @@ def test_cell_files_load(cell):
         assert v["lower"] < v["limit"] < v["upper"], (k, v)
     for k, v in skipped.items():  # a number not compared says why, with its readings
         assert v["why"] and v["lower"] > 0, (k, v)
-    assert inputs.leaf_names(cfg) and flops.flops_per_token(c.config["model"],
-                                                            c.traffic["seq_len"]) > 0
+    assert c.module.leaf_names(cfg)
+    assert c.module.flops_per_token(c.config["model"], c.traffic["seq_len"]) > 0
     assert {m["name"] for m in c.end_to_end} == {"tokens_per_s", "mfu", "peak_mem_gib",
                                                   "setup_s"}
     assert c.per_layer
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_files_load(cell):
+    check_cell_files(cell)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
@@ -69,15 +82,27 @@ def test_metric_reader_loads(metric):
     assert callable(spec.metric_reader(metric))
 
 
-@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
-def test_config_file_states_its_cut(config):
+def check_config_file(config, root=spec.ROOT):
+    """The configuration entry ``config`` of ``root``'s BENCHMARK.json: its
+    file states its cut, and its model module exists and keeps the
+    contract."""
     assert config["file"].startswith("bench/configs/")
-    body = json.loads((spec.ROOT / config["file"]).read_text())
+    body = json.loads((root / config["file"]).read_text())
     assert body["name"] == config["name"]
     assert set(config["reduced"]) == set(body["reduced"])
     assert all(k in body["model"] for k in config["reduced"])
     assert not any(WIDTH.search(k) for k in config["reduced"])
     assert body["assumed"] and body["deployment"]
+    # its model module (the default where it names none) exists and keeps the contract
+    rel = body.get("model_module", spec.DEFAULT_MODULE)
+    assert rel.startswith("bench/models/") and (root / rel).is_file()
+    mod = spec.model_module(body, root)
+    assert all(callable(getattr(mod, f, None)) for f in spec.MODEL_FUNCTIONS)
+
+
+@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
+def test_config_file_states_its_cut(config):
+    check_config_file(config)
 
 
 def test_a_new_cell_is_found_from_files_alone(tmp_path):

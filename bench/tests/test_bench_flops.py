@@ -74,6 +74,7 @@ def test_step_mfu_reads_the_device_time_and_idle_the_window():
     import types
     tokens, m = 65536, model("granite")
     ctx = types.SimpleNamespace(model=m, traffic={"seq_len": 2048}, tokens=tokens,
+                                module=spec.model_module({}),
                                 trace=types.SimpleNamespace(busy_s=1.5, window_s=3.0))
     want = 100 * tokens * flops.flops_per_token(m, 2048) / (1.5 * 989e12)
     assert spec.metric_reader("step_mfu")(ctx) == pytest.approx(want)

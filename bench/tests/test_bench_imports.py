@@ -2,6 +2,7 @@
 ``benchmarks/``, and prints no result without a card or without the
 program."""
 import ast
+import json
 import os
 import shutil
 import subprocess
@@ -16,7 +17,18 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
 def _sources():
-    return sorted(spec.BENCH.glob("*.py")) + sorted((spec.BENCH / "metrics").glob("*.py"))
+    return sorted(spec.BENCH.glob("*.py")) + sorted((spec.BENCH / "metrics").glob("*.py")) \
+        + sorted((spec.BENCH / "models").glob("*.py"))
+
+
+def _model_modules():
+    """Every model module a configuration names, the default and the
+    tests' own."""
+    bench = json.loads((spec.ROOT / "BENCHMARK.json").read_text())
+    named = [json.loads((spec.ROOT / c["file"]).read_text()).get("model_module")
+             for c in bench["configs"]]
+    return sorted({spec.DEFAULT_MODULE, "bench/tests/windowed_model.py",
+                   *filter(None, named)})
 
 
 def test_no_source_imports_jax_or_the_jax_package():
@@ -53,6 +65,24 @@ def test_a_run_leaves_no_forbidden_module_loaded():
     assert not tops & FORBIDDEN, tops & FORBIDDEN
     assert run.forbidden_modules() == sorted(
         {m.split(".")[0] for m in sys.modules} & FORBIDDEN)
+
+
+@pytest.mark.parametrize("module", _model_modules())
+def test_loading_a_model_module_imports_nothing_of_the_program(module):
+    """A model module loaded in a fresh interpreter leaves neither the port
+    nor the JAX package (nor JAX) in ``sys.modules``: its reference takes
+    nothing of the program."""
+    code = (
+        "import sys; sys.path[:0] = [%r, %r]\n"
+        "from bench import spec\n"
+        "mod = spec.model_module({'model_module': %r})\n"
+        "print(' '.join(sorted({m.split('.')[0] for m in sys.modules})))\n"
+    ) % (str(spec.ROOT), str(spec.ROOT / "src"), module)
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert got.returncode == 0, got.stderr[-2000:]
+    tops = set(got.stdout.split())
+    assert "torch" in tops and not tops & (FORBIDDEN | {"repro_torch"}), tops
 
 
 def _harness(cwd, timeout=120):

@@ -83,8 +83,8 @@ class _Trace:
 
 
 def _read(name, trace):
-    return spec.metric_reader(name)(run.Ctx(model={}, traffic={}, trace=trace, stats=None,
-                                            tokens=0))
+    return spec.metric_reader(name)(run.Ctx(model={}, traffic={}, module=None, trace=trace,
+                                            stats=None, tokens=0))
 
 
 def test_readers_on_a_stand_in_trace():

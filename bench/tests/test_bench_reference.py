@@ -4,7 +4,7 @@ the reference's loss and every leaf's gradient to fp32 rounding."""
 import pytest
 import torch
 
-from bench import check, inputs, reference, run
+from bench import check, reference, run
 
 
 @pytest.mark.parametrize("name", ["dense.flash", "granite-moe.bpipe.b4",
@@ -13,11 +13,11 @@ def test_pipelined_step_matches_the_reference_in_fp32(tiny, name):
     cell = tiny(name)
     cell.config["model"]["dtype"] = "float32"
     cfg, params, batches, ex = run.build(cell, 2**40 + 17, torch.device("cpu"))
-    res = ex.step(params, batches[0])
+    res, mod = ex.step(params, batches[0]), cell.module
     numbers, stats = check.compare(
-        reference.leaf_grads(cfg, params, batches[0], int(cell.traffic["micro_batch"])),
-        lambda n: inputs.leaf_of(res.grads, n), float(res.loss))
-    assert len(stats.rows) == len(inputs.leaf_names(cfg))
+        mod.leaf_grads(cfg, params, batches[0], int(cell.traffic["micro_batch"])),
+        lambda n: mod.leaf_of(res.grads, n), float(res.loss))
+    assert len(stats.rows) == len(mod.leaf_names(cfg))
     assert numbers["loss_rel"] < 1e-6
     assert numbers["grad_norm_gap"] < 1e-5 and numbers["grad_diff"] < 1e-5, numbers
 
@@ -30,7 +30,7 @@ def test_single_device_loss_matches_the_reference(tiny):
     batch = {k: v[:2] for k, v in batches[1].items()}  # one microbatch of 2 rows
     with torch.no_grad():
         loss, _ = M.loss_fn(params, batch, cfg)
-    want = reference.loss_only(cfg, params, batch, 2)
+    want = cell.module.loss_only(cfg, params, batch, 2)
     assert abs(float(loss) - want) / want < 1e-6
 
 
